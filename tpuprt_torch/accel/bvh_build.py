@@ -1,0 +1,159 @@
+"""Host-side construction of the wide (8-ary) skip-link BVH (port of
+tpuprt/accel/bvh_build.py: build_rows, build_tiles, build_bvh).
+
+The tree comes from the SAME native binned-SAH builder as the reference,
+``tpuprt/native/csrc/bvh_build8.cpp``, compiled by path with g++ (the file
+is read, nothing of the JAX package is imported), so the port walks the same
+tree bit for bit and ids can be compared per ray. The reference's NumPy LBVH
+fallback is not carried over: without g++ the build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from ..native import REPO_ROOT, build_shared
+from ..scene.data import BvhAccel
+
+LEAF_K = 8
+BRANCH = 8
+ROW_W = 96
+MAX_TILE_DEPTH = 32
+
+BVH_BUILD8_SRC = os.path.join(REPO_ROOT, "tpuprt", "native", "csrc",
+                              "bvh_build8.cpp")
+# The reference's flags (tpuprt/native/__init__.py): no FMA contraction, so
+# the tree does not depend on the host's vector units.
+_GXX = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
+        "-shared", "-fPIC"]
+
+
+def _native_builder():
+    fn = build_shared(BVH_BUILD8_SRC, _GXX).tpuprt_bvh_build8
+    fptr = ctypes.POINTER(ctypes.c_float)
+    iptr = ctypes.POINTER(ctypes.c_int)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, fptr, fptr, ctypes.c_int, ctypes.c_int,
+                   fptr, ctypes.c_int, fptr, ctypes.c_int, iptr]
+    return fn, fptr, iptr
+
+
+def build_rows(lo, hi, tri9):
+    """Binned-SAH wide BVH over triangle AABBs with packed verts tri9 (the
+    native builder's quadric count is 0: the port builds no quadrics).
+    Returns (rows f32[NN,96], prim_ids i32[NN,LEAF_K], nn)."""
+    lo = np.ascontiguousarray(lo, np.float32)
+    hi = np.ascontiguousarray(hi, np.float32)
+    tri9 = np.ascontiguousarray(tri9, np.float32)
+    p = len(lo)
+    # Prim ids and node counts ride in f32 rows: exact only below 2^24.
+    if p >= (1 << 24):
+        raise ValueError(f"{p} prims exceeds the f32-id row format")
+    fn, fptr, iptr = _native_builder()
+    cap = max(p // 2 + 64, 64)
+    while True:
+        rows = np.zeros((cap, ROW_W), np.float32)
+        prim_ids = np.full((cap, LEAF_K), -1, np.int32)
+        nn = fn(p, lo.ctypes.data_as(fptr), hi.ctypes.data_as(fptr), 0,
+                len(tri9), tri9.ctypes.data_as(fptr), LEAF_K,
+                rows.ctypes.data_as(fptr), cap,
+                prim_ids.ctypes.data_as(iptr))
+        if nn == -1:
+            cap *= 2
+            continue
+        if nn < 0:
+            raise RuntimeError(f"native BVH build failed ({nn})")
+        return rows[:nn], prim_ids[:nn], nn
+
+
+def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K):
+    """Re-pack skip-link rows into the param-major tile format the traversal
+    kernel walks. Row n (128 f32 lanes): lanes [8k, 8k+8) hold param k of
+    the node's 8 payload slots — interior: child j's [lo(3), hi(3)];
+    leaf: triangle j's [p0(3), e1(3), e2(3), pid]. skip and meta
+    (depth | rank<<5 | nprims<<8) are separate i32 tables.
+
+    Returns (tilesP f32[NN,128], skip i32[NN], meta i32[NN]) or None when
+    the tree is deeper than the walk's per-depth mask array.
+    """
+    rows = np.asarray(rows)
+    prim_ids = np.asarray(prim_ids).reshape(nn, leaf_k)
+    skip = rows[:nn, 6].astype(np.int64)
+    nprims = rows[:nn, 7].astype(np.int32)
+
+    # Preorder walk: depth + rank (sibling index in emission order) +
+    # parent, from the skip links alone.
+    depth = np.zeros(nn, np.int32)
+    rank = np.zeros(nn, np.int32)
+    parent = np.full(nn, -1, np.int64)
+    stack = []                     # [end, node, children_so_far]
+    for i in range(nn):
+        while stack and stack[-1][0] <= i:
+            stack.pop()
+        if stack:
+            top = stack[-1]
+            depth[i] = len(stack)
+            rank[i] = top[2]
+            parent[i] = top[1]
+            top[2] += 1
+        if nprims[i] == 0:
+            stack.append([skip[i], i, 0])
+    if nn and int(depth.max()) >= MAX_TILE_DEPTH:
+        return None
+    if rank.max(initial=0) >= BRANCH:
+        return None
+
+    tiles = np.zeros((nn, 16, 8), np.float32)   # [node, param, slot]
+    interior = nprims == 0
+    # Interior: empty child slots get inverted boxes (never entered).
+    tiles[interior, 0:3, :] = 1e30
+    tiles[interior, 3:6, :] = -1e30
+    nonroot = parent >= 0
+    p = parent[nonroot]
+    r = rank[nonroot]
+    bb = rows[:nn][nonroot]
+    for k in range(6):
+        tiles[p, k, r] = bb[:, k]
+    # Leaves: slot j = triangle j as [p0, e1, e2, pid]; empty slots are
+    # all-zero with pid -1.
+    L = ~interior
+    if L.any():
+        verts = rows[:nn][L][:, 8:8 + 9 * leaf_k].reshape(-1, leaf_k, 9)
+        p0 = verts[:, :, 0:3]
+        tiles[L, 0:3, :leaf_k] = p0.transpose(0, 2, 1)
+        tiles[L, 3:6, :leaf_k] = (verts[:, :, 3:6] - p0).transpose(0, 2, 1)
+        tiles[L, 6:9, :leaf_k] = (verts[:, :, 6:9] - p0).transpose(0, 2, 1)
+        tiles[L, 9, :leaf_k] = prim_ids[L].astype(np.float32)
+        tiles[L, 9, leaf_k:] = -1.0
+    meta = depth | (rank << 5) | (nprims << 8)
+    return (np.ascontiguousarray(tiles.reshape(nn, 128)),
+            skip.astype(np.int32), meta.astype(np.int32))
+
+
+def build_bvh(tri) -> BvhAccel:
+    """Tile-format BVH over a host TriangleTable (numpy-backed tensors)."""
+    idx = tri.idx.numpy()
+    verts = tri.verts.numpy()
+    pts = verts[idx]                                     # [T,3,3]
+    lo = pts.min(1).astype(np.float32)
+    hi = pts.max(1).astype(np.float32)
+    tri9 = np.concatenate([verts[idx[:, 0]], verts[idx[:, 1]],
+                           verts[idx[:, 2]]], axis=1).astype(np.float32)
+    rows, prim_ids, nn = build_rows(lo, hi, tri9)
+    built = build_tiles(rows, prim_ids, nn, LEAF_K)
+    if built is None:
+        raise NotImplementedError(
+            "BVH deeper than 32 levels: the row-format walk "
+            "(bvh_pallas.traverse, kernel 3 of the port's table) is not "
+            "ported")
+    tiles, nskip, nmeta = (torch.from_numpy(a) for a in built)
+    pad = 1e-4 * max(np.abs(lo).max(initial=0),
+                     np.abs(hi).max(initial=0)) + 1e-4
+    return BvhAccel(
+        bounds_lo=torch.from_numpy(lo.min(0) - pad),
+        bounds_hi=torch.from_numpy(hi.max(0) + pad),
+        tri9=torch.from_numpy(tri9), nodesT=tiles, nodeskip=nskip,
+        nodemeta=nmeta, n_nodes=nn, leaf_k=LEAF_K, n_quadrics=0)

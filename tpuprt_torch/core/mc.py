@@ -1,0 +1,47 @@
+"""Monte Carlo warps and the MIS heuristic (port of tpuprt/core/mc.py, the
+parts the port uses)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
+
+
+def concentric_sample_disk(u1, u2):
+    """Shirley-Chiu concentric map (core/mc.cpp:89-131), branchless."""
+    sx = 2.0 * u1 - 1.0
+    sy = 2.0 * u2 - 1.0
+    zero = (sx == 0.0) & (sy == 0.0)
+    abs_sx, abs_sy = torch.abs(sx), torch.abs(sy)
+    cond = abs_sx > abs_sy
+    r = torch.where(cond, abs_sx, abs_sy)
+
+    def safe(n, d):
+        return n / torch.where(torch.abs(d) < 1e-20,
+                               torch.full_like(d, 1e-20), d)
+
+    a = torch.where(cond, safe(sy, sx), safe(sx, sy))
+    theta = torch.where(cond,
+                        torch.where(sx >= 0, a, 4.0 + a),
+                        torch.where(sy >= 0, 2.0 - a, 6.0 - a))
+    theta = theta * (math.pi / 4.0)
+    dx = torch.where(zero, torch.zeros_like(r), r * torch.cos(theta))
+    dy = torch.where(zero, torch.zeros_like(r), r * torch.sin(theta))
+    return dx, dy
+
+
+def cosine_sample_hemisphere(u1, u2):
+    """core/mc.h:38-44 — concentric disk + project up."""
+    x, y = concentric_sample_disk(u1, u2)
+    z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=1e-12))
+    return torch.stack([x, y, z], dim=-1)
+
+
+def power_heuristic(nf, f_pdf, ng, g_pdf):
+    """core/mc.h:55-59 — beta=2."""
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return (f * f) / torch.clamp(f * f + g * g, min=1e-20)

@@ -1,0 +1,137 @@
+"""Direct-lighting estimators shared by the wavefront integrators (port of
+tpuprt/integrators/common.py: make_bsdf_at, batched_visibility,
+estimate_direct_multi; core/transport.cpp:123-194).
+
+The two-strategy MIS of EstimateDirect (light sampling with visibility +
+BSDF sampling, power heuristic) is kept exactly, as is the fused launch:
+every light's shadow and BSDF-strategy rays go to the traversal kernel in
+ONE launch per bounce.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..accel import intersect as isect
+from ..bsdf import bsdf as B
+from ..core import mc, vecmath as vm
+from ..lights import lights as lt
+from ..materials import factory as _factory
+from ..scene.data import LIGHT_AREA, LIGHT_INFINITE, SceneData
+from ..textures import graph as _tex
+
+_EPS = vm.RAY_EPSILON
+
+
+def make_bsdf_at(scene: SceneData, dg):
+    """Evaluate textures + assemble lobes at hit points (GetBSDF chain,
+    core/primitive.cpp:126-133)."""
+    if scene.materials.has_bump:
+        raise NotImplementedError("bump mapping is not ported")
+    tex_vals = _tex.eval_graph(scene.textures, dg)
+    lobes = _factory.make_lobes(scene.materials, dg["material"], tex_vals)
+    nn, sn, tn, ng = B.make_frame(dg["sn"], dg["dpdu"], dg["nn"])
+    return B.BsdfBatch(nn=nn, sn=sn, tn=tn, ng=ng, lobes=lobes)
+
+
+def batched_visibility(scene: SceneData, segs, needs):
+    """Resolve ray segments in ONE traversal launch.
+
+    segs:  list of (o f32[N,3], d f32[N,3], mint f32[N], maxt f32[N]).
+    needs: list of "any" | "nearest" per segment.
+    Returns per segment: (t, pid, hit) for "nearest", occluded booleans for
+    "any". A batch with any "nearest" segment is one nearest launch
+    (common.py:191-201); an all-"any" batch is one any-hit launch
+    (common.py:202-207). The fused batch is sorted for coherence.
+    """
+    O = torch.cat([s[0] for s in segs], dim=0)
+    D = torch.cat([s[1] for s in segs], dim=0)
+    MINT = torch.cat([s[2] for s in segs], dim=0)
+    MAXT = torch.cat([s[3] for s in segs], dim=0)
+    sizes = [s[0].shape[0] for s in segs]
+    if any(nd == "nearest" for nd in needs):
+        t, pid, hit = isect.intersect_ids(scene, O, D, MINT, MAXT)
+        return [(ti, pi, hi) if nd == "nearest" else hi
+                for nd, ti, pi, hi in zip(needs, t.split(sizes),
+                                          pid.split(sizes),
+                                          hit.split(sizes))]
+    return list(isect.occluded(scene, O, D, MINT, MAXT).split(sizes))
+
+
+def estimate_direct_multi(scene: SceneData, specs, p, n, wo,
+                          bsdf: B.BsdfBatch, active):
+    """Sum of EstimateDirect (core/transport.cpp:123-194) over several
+    lights with every visibility + BSDF-strategy ray batched into ONE
+    traversal launch.
+
+    specs: list of dicts with light_id i32[N], ls1, ls2, ls3, bs1, bs2, bcs
+    (sampler streams) and static_kind (the light's LIGHT_* kind).
+    """
+    lt.check(scene.lights)
+    if LIGHT_AREA in scene.lights.kinds_present:
+        raise NotImplementedError("area lights are not ported")
+
+    # ---- Phase 1: sample lights + BSDF, emit ray segments ---------------
+    segs, needs, plan = [], [], []
+    for sp in specs:
+        sk = sp["static_kind"]
+        smp = lt.sample(scene, sp["light_id"], p, n, sp["ls1"], sp["ls2"],
+                        sp["ls3"])
+        f_val = B.f(bsdf, wo, smp["wi"])
+        # Lanes with a provably-zero contribution get DEGENERATE rays
+        # (mint 1 > maxt -1): the kernel finishes them at the root.
+        usable = active & (smp["pdf"] > 0.0) & \
+            ~torch.all(smp["Li"] == 0.0, dim=-1)
+        need_vis = usable & ~torch.all(f_val == 0.0, dim=-1)
+        rec = dict(sp=sp, smp=smp, f_val=f_val, need_vis=need_vis,
+                   seg1=len(segs), seg2=-1)
+        segs.append((p, smp["wi"], torch.where(need_vis, _EPS, 1.0),
+                     torch.where(need_vis, smp["vis_maxt"], -1.0)))
+        needs.append("any")
+        # Strategy 2 exists only for non-delta lights (transport.cpp:166).
+        if not lt.is_delta(sk):
+            bs = B.sample_f(bsdf, wo, sp["bs1"], sp["bs2"], sp["bcs"],
+                            B.ALL & ~B.SPECULAR)
+            go = active & ~smp["delta"] & bs["valid"] & \
+                (bs["pdf"] > 0.0) & ~torch.all(bs["f"] == 0.0, dim=-1)
+            rec.update(bs=bs, go=go, seg2=len(segs))
+            segs.append((p, bs["wi"], torch.where(go, _EPS, 1.0),
+                         torch.where(go, 1e30, -1.0)))
+            # Without area lights, an infinite light's strategy-2 ray only
+            # needs the escape predicate (transport.cpp:181-188).
+            needs.append("any")
+        plan.append(rec)
+
+    vis = batched_visibility(scene, segs, needs)
+
+    # ---- Phase 2: resolve contributions ---------------------------------
+    Ld = torch.zeros(p.shape[:-1] + (3,), dtype=torch.float32,
+                     device=p.device)
+    for rec in plan:
+        sp, smp = rec["sp"], rec["smp"]
+        light_id = sp["light_id"]
+        wi, light_pdf = smp["wi"], smp["pdf"]
+        unocc = rec["need_vis"] & ~vis[rec["seg1"]]
+        bsdf_pdf = B.pdf(bsdf, wo, wi, B.ALL & ~B.SPECULAR)
+        w_mis = torch.where(smp["delta"], 1.0,
+                            mc.power_heuristic(1.0, light_pdf, 1.0, bsdf_pdf))
+        contrib = rec["f_val"] * smp["Li"] * (
+            vm.absdot(wi, n) * w_mis /
+            torch.clamp(light_pdf, min=1e-20))[..., None]
+        Ldi = torch.where(unocc[..., None], contrib, 0.0)
+
+        if rec["seg2"] >= 0:
+            bs = rec["bs"]
+            wi2, bpdf = bs["wi"], bs["pdf"]
+            lpdf2 = lt.pdf(scene, light_id, p, n, wi2)
+            esc = ~vis[rec["seg2"]] & (sp["static_kind"] == LIGHT_INFINITE)
+            Li2 = torch.where(esc[..., None],
+                              lt.env_radiance(scene, light_id, wi2), 0.0)
+            ok2 = rec["go"] & (lpdf2 > 0.0) & \
+                ~torch.all(Li2 == 0.0, dim=-1)
+            w2 = mc.power_heuristic(1.0, bpdf, 1.0, lpdf2)
+            contrib2 = bs["f"] * Li2 * (
+                vm.absdot(wi2, n) * w2 /
+                torch.clamp(bpdf, min=1e-20))[..., None]
+            Ldi = Ldi + torch.where(ok2[..., None], contrib2, 0.0)
+        Ld = Ld + Ldi
+    return Ld

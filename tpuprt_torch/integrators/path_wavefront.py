@@ -1,0 +1,219 @@
+"""Wavefront rendering with path regeneration (port of
+tpuprt/integrators/path_wavefront.py, mode "directlighting" with strategy
+"all").
+
+One fixed-size lane pool; the moment a lane's path ends, its radiance is
+splatted to the film and the lane restarts with the next (pixel, sample)
+from a global cursor. Every random stream is a pure function of (pixel,
+sample index, bounce, purpose) with the reference's purposes and salts, so
+each camera sample computes what the JAX package computes, and the
+developed image matches it up to the order of the film's sums.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..accel import intersect as isect
+from ..bsdf import bsdf as B
+from ..cameras import cameras as cam_mod
+from ..core import rng, vecmath as vm
+from ..film import film as film_mod
+from ..lights import lights as lt
+from ..samplers import samplers as smp
+from ..scene.data import SceneData
+from . import common
+
+_EPS = vm.RAY_EPSILON
+_SALT_DIRECTLIGHTING = 0xD112
+
+
+def _regen(scene: SceneData, cfg, lin, seed, xres, yres, xstart, xcount,
+           ystart, spp):
+    """Fresh camera rays (+x/+y differentials) for linear sample ids.
+    lin is int64 (the reference's uint32 ids, path_wavefront.py:85)."""
+    s_idx = (lin % spp).to(torch.int32)
+    pix = lin // spp
+    px = (xstart + pix % xcount).to(torch.int32)
+    py = (ystart + pix // xcount).to(torch.int32)
+    cs = smp.camera_samples(cfg, px, py, s_idx, seed)
+    ix, iy = cs["image_x"], cs["image_y"]
+    o, d, mint, maxt = cam_mod.generate_rays(scene.camera, ix, iy, xres, yres)
+    o_rx, d_rx, _, _ = cam_mod.generate_rays(scene.camera, ix + 1.0, iy,
+                                             xres, yres)
+    o_ry, d_ry, _, _ = cam_mod.generate_rays(scene.camera, ix, iy + 1.0,
+                                             xres, yres)
+    return dict(px=px, py=py, s_idx=s_idx, ix=ix, iy=iy, o=o, d=d,
+                mint=mint, maxt=maxt, rx_o=o_rx, rx_d=d_rx, ry_o=o_ry,
+                ry_d=d_ry)
+
+
+def _direct_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
+               alive):
+    """Direct lighting, strategy "all": every light with its own streams
+    (path_wavefront.py:105-130), all rays in one traversal launch."""
+    ls3 = rng.uniform(ph, s_idx, bounce, 16)
+    specs = []
+    for i, kind in enumerate(scene.lights.kinds_list):
+        lid = torch.full(p.shape[:-1], i, dtype=torch.int32, device=p.device)
+        l1, l2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 100 + 4 * i,
+                                   seed)
+        b1, b2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 101 + 4 * i,
+                                   seed)
+        bc = smp.integrator_1d(cfg, px, py, s_idx, bounce, 102 + 4 * i, seed)
+        specs.append(dict(light_id=lid, ls1=l1, ls2=l2, ls3=ls3, bs1=b1,
+                          bs2=b2, bcs=bc, static_kind=kind))
+    return common.estimate_direct_multi(scene, specs, p, ns, wo, bsdf, alive)
+
+
+def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
+          xres, yres, xstart, xcount, ystart, spp, filter_kind,
+          filter_xwidth, filter_ywidth):
+    """One wavefront pass (path_wavefront.py:181-420, directlighting): bounce
+    every live lane once, splat + regenerate finished lanes. Returns
+    (state, cursor)."""
+    alive = st["alive"]
+    px, py, s_idx, bounce = st["px"], st["py"], st["s_idx"], st["bounce"]
+    ro, rd = st["o"], st["d"]
+    throughput, L = st["throughput"], st["L"]
+    specular, alpha = st["specular"], st["alpha"]
+    first = bounce == 0
+    ph = rng.hash_u32(px, py, seed, _SALT_DIRECTLIGHTING)
+
+    t, pid, hit = isect.intersect_ids(scene, ro, rd, st["mint"], st["maxt"])
+
+    if scene.lights.infinite_meta:
+        # Escape radiance on every miss of a live lane.
+        take_le = ~hit & alive
+        Lesc = lt.le_escaped(scene, rd)
+        L = L + torch.where(take_le[..., None], throughput * Lesc, 0.0)
+        alpha = torch.where(take_le & first & torch.any(Lesc > 0, -1), 1.0,
+                            alpha)
+    alive = alive & hit
+    alpha = torch.where(first & hit, 1.0, alpha)
+
+    dg = isect.hit_geometry(scene, pid, ro, rd, t)
+    dg = isect.compute_differentials(dg, st["rx_o"], st["rx_d"],
+                                     st["ry_o"], st["ry_d"], first & alive)
+    bsdf = common.make_bsdf_at(scene, dg)
+    p, ns = dg["p"], bsdf.nn
+    wo = -rd
+    if scene.lights.count > 0:
+        Ld = _direct_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx,
+                        bounce, seed, alive)
+        L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
+
+    # Specular-only continuation (directlighting.cpp).
+    c1 = rng.uniform(ph, s_idx, bounce, 0x5A, 1)
+    c2 = rng.uniform(ph, s_idx, bounce, 0x5A, 2)
+    c3 = rng.uniform(ph, s_idx, bounce, 0x5A, 3)
+    bs = B.sample_f(bsdf, wo, c1, c2, c3,
+                    B.SPECULAR | B.REFLECTION | B.TRANSMISSION)
+    cont = alive & bs["valid"] & (bs["pdf"] > 0.0) & \
+        ~torch.all(bs["f"] == 0.0, dim=-1) & (bounce < max_depth)
+    scale = bs["f"] * (vm.absdot(bs["wi"], ns) /
+                       torch.clamp(bs["pdf"], min=1e-20))[..., None]
+    throughput = torch.where(cont[..., None], throughput * scale, throughput)
+    specular = torch.where(cont, bs["specular"], specular)
+    alive = cont
+    ro, rd = p, bs["wi"]
+    bounce = bounce + 1
+
+    # --- finish & splat -------------------------------------------------
+    finished = st["alive"] & ~alive
+    bad = torch.any(~torch.isfinite(L) | (L < 0.0), dim=-1)
+    Ls = torch.where((finished & ~bad)[..., None], L, 0.0)
+    film_mod.add_samples(film, torch.where(finished, st["ix"], -1e6),
+                         torch.where(finished, st["iy"], -1e6), Ls,
+                         torch.where(finished, alpha, 0.0),
+                         filter_kind, filter_xwidth, filter_ywidth)
+
+    # --- regenerate ------------------------------------------------------
+    dead = ~alive
+    slot = torch.cumsum(dead.to(torch.int64), 0) - dead.to(torch.int64)
+    new_lin = cursor + slot
+    regen = dead & (new_lin < total)
+    fresh = _regen(scene, cfg, torch.where(regen, new_lin, 0), seed, xres,
+                   yres, xstart, xcount, ystart, spp)
+
+    def sel(new, old):
+        m = regen
+        while m.dim() < new.dim():
+            m = m[..., None]
+        return torch.where(m, new, old)
+
+    st_out = dict(
+        alive=alive | regen,
+        px=sel(fresh["px"], px), py=sel(fresh["py"], py),
+        s_idx=sel(fresh["s_idx"], s_idx),
+        bounce=torch.where(regen, 0, bounce),
+        ix=sel(fresh["ix"], st["ix"]), iy=sel(fresh["iy"], st["iy"]),
+        o=sel(fresh["o"], ro), d=sel(fresh["d"], rd),
+        mint=sel(fresh["mint"], torch.full_like(st["mint"], _EPS)),
+        maxt=sel(fresh["maxt"], torch.full_like(st["maxt"], 1e30)),
+        rx_o=sel(fresh["rx_o"], st["rx_o"]), rx_d=sel(fresh["rx_d"],
+                                                      st["rx_d"]),
+        ry_o=sel(fresh["ry_o"], st["ry_o"]), ry_d=sel(fresh["ry_d"],
+                                                      st["ry_d"]),
+        throughput=sel(torch.ones_like(throughput), throughput),
+        L=sel(torch.zeros_like(L), L),
+        alpha=torch.where(regen, 0.0, alpha),
+        specular=torch.where(regen, False, specular),
+    )
+    return st_out, cursor + regen.sum()
+
+
+def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
+          ystart, spp, device):
+    """Initial fill: lanes 0..n_lanes-1 take the first sample ids."""
+    lin0 = torch.arange(n_lanes, dtype=torch.int64, device=device)
+    fresh = _regen(scene, cfg, torch.clamp(lin0, max=total - 1), seed, xres,
+                   yres, xstart, xcount, ystart, spp)
+    z3 = torch.zeros((n_lanes, 3), dtype=torch.float32, device=device)
+    st = {k: fresh[k] for k in ("px", "py", "s_idx", "ix", "iy", "o", "d",
+                                "mint", "maxt", "rx_o", "rx_d", "ry_o",
+                                "ry_d")}
+    st.update(alive=lin0 < total,
+              bounce=torch.zeros(n_lanes, dtype=torch.int32, device=device),
+              throughput=z3 + 1.0, L=z3,
+              alpha=torch.zeros(n_lanes, dtype=torch.float32, device=device),
+              specular=torch.zeros(n_lanes, dtype=torch.bool, device=device))
+    return st
+
+
+def render(scene: SceneData, opts, device):
+    """Full-frame wavefront render of a scene whose tables live on
+    `device`. Returns (rgb, alpha) as numpy f32 arrays."""
+    if opts.integrator != "directlighting":
+        raise NotImplementedError(
+            f'integrator "{opts.integrator}" is not ported (directlighting, '
+            'strategy "all")')
+    film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
+    xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)
+    spp = smp.samples_per_pixel(opts.sampler)
+    total = xcount * ycount * spp
+    n_lanes = int(min(opts.chunk_size, total))
+    kw = dict(cfg=opts.sampler, seed=opts.seed, total=total, xres=opts.xres,
+              yres=opts.yres, xstart=xstart, xcount=xcount, ystart=ystart,
+              spp=spp)
+    st = _init(scene, n_lanes=n_lanes, device=device, **kw)
+    cursor = torch.tensor(n_lanes, dtype=torch.int64, device=device)
+    # Loose bound against bugs: every sample ends within max_depth + 1
+    # passes of its regeneration.
+    pass_limit = math.ceil(total * (opts.max_depth + 2) / n_lanes) + \
+        opts.max_depth + 8
+    for _ in range(pass_limit):
+        st, cursor = _step(scene, film, st, cursor,
+                           max_depth=opts.max_depth,
+                           filter_kind=opts.filter_kind,
+                           filter_xwidth=opts.filter_xwidth,
+                           filter_ywidth=opts.filter_ywidth, **kw)
+        if not bool(st["alive"].any()):
+            break
+    rgb, alpha = film_mod.develop(film)
+    if opts.half_readback:
+        rgb, alpha = film_mod.to_half(rgb, alpha)
+    return (rgb.to(torch.float32).cpu().numpy(),
+            alpha.to(torch.float32).cpu().numpy().astype(np.float32))

@@ -1,0 +1,89 @@
+"""Material -> BSDF lobe assembly via build-time templates (port of
+tpuprt/materials/factory.py for the matte material).
+
+`build_templates` compiles each material's lobe structure into [M, L]
+op-code columns on the host; `make_lobes` assembles a shading wavefront's
+LobeTable from those columns and the evaluated texture slots. Slot
+convention for matte: 0 = Kd, 1 = sigma (matte.cpp:46-64; sigma 0 reduces
+Oren-Nayar to exact Lambertian, A=1, B=0).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..bsdf import bsdf as B
+
+MAT_MATTE = 0
+MAX_LOBES = 4
+MATERIAL_KINDS = {"matte": MAT_MATTE}
+
+# Op codes, as in the reference: R (lobe scale) and p (lobe parameters).
+R_SLOT = 2          # clamp01(slot a)
+P_SIGMA_AB = 2      # Oren-Nayar A,B from sigma degrees in slot a
+
+
+def build_templates(mats: List[Tuple[int, List[int], int]]):
+    """Host-side: (kind, tex_slots, bump) list -> template column arrays."""
+    M = len(mats)
+    cols = {k: np.zeros((M, MAX_LOBES), np.int32) for k in
+            ("kind", "flags", "aux0", "aux1", "rop", "ra", "rb",
+             "eop", "ea", "pop", "pa", "pb")}
+    cols["kind"][:] = B.BX_NONE
+    for m, (kind, _slots, _bump) in enumerate(mats):
+        if kind != MAT_MATTE:
+            raise NotImplementedError(f"material kind {kind} is not ported")
+        cols["kind"][m, 0] = B.BX_ORENNAYAR
+        cols["flags"][m, 0] = B.REFLECTION | B.DIFFUSE
+        cols["rop"][m, 0] = R_SLOT
+        cols["pop"][m, 0] = P_SIGMA_AB
+        cols["pa"][m, 0] = 1
+    out = {f"t_{k}": v for k, v in cols.items()}
+    out.update(t_flip=np.zeros((M, MAX_LOBES), bool),
+               lobe_kinds=tuple(sorted({int(k) for k in cols["kind"].ravel()
+                                        if k != B.BX_NONE})),
+               dist_kinds=())
+    return out
+
+
+def make_lobes(materials, mat_id, tex_vals) -> B.LobeTable:
+    """Assemble the wavefront LobeTable from templates + texture values.
+
+    mat_id: i32[N]; tex_vals: f32[Ntex, N, 3].
+    """
+    n = mat_id.shape[0]
+    mid = torch.clamp(mat_id, min=0).long()
+    kind = materials.t_kind[mid]
+    flags = materials.t_flags[mid]
+    rop, c_ra = materials.t_rop[mid], materials.t_ra[mid]
+    pop, c_pa = materials.t_pop[mid], materials.t_pa[mid]
+    tex_ids = materials.tex[mid].long()                  # [N, 8]
+    lanes = torch.arange(n, device=mat_id.device)[:, None]
+    sv = tex_vals[torch.clamp(tex_ids, min=0), lanes]    # [N, 8, 3]
+    sv = torch.clamp(torch.where((tex_ids >= 0)[..., None], sv, 0.0),
+                     0.0, 1.0)
+
+    def slot(col):                    # col: [N, L] -> value [N, L, 3]
+        return torch.gather(sv, 1, col.long()[..., None].expand(-1, -1, 3))
+
+    # build_templates admits matte rows only, so R_SLOT and P_SIGMA_AB
+    # are the only ops present; absent lobes get 0 as R_NONE/P_NONE give.
+    R = torch.where((rop == R_SLOT)[..., None], slot(c_ra), 0.0)
+    pa = slot(c_pa)[..., 0]
+    sig = pa * (math.pi / 180.0)
+    sig2 = sig * sig
+    on = pop == P_SIGMA_AB
+    p0 = torch.clamp(torch.where(on, 1.0 - sig2 / (2.0 * (sig2 + 0.33)),
+                                 0.0), max=10000.0)
+    p1 = torch.clamp(torch.where(on, 0.45 * sig2 / (sig2 + 0.09), 0.0),
+                     max=10000.0)
+    # Disable exactly-black lobes (the reference's conditional Add()).
+    dead = torch.all(R == 0.0, dim=-1) | (kind == B.BX_NONE)
+    kind = torch.where(dead, B.BX_NONE, kind)
+    flags = torch.where(dead, 0, flags)
+    return B.LobeTable(kind=kind, flags=flags, R=R,
+                       p=torch.stack([p0, p1], dim=-1),
+                       kinds_present=materials.lobe_kinds)

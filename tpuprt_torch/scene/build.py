@@ -1,0 +1,237 @@
+"""Host-side scene compilation: builder calls -> SceneData (port of
+tpuprt/scene/build.py for triangle meshes, matte materials, constant and
+checkerboard textures, distant and infinite lights and the BVH).
+
+All assembly is host numpy with the reference's exact operations, so the
+finished tables equal the JAX package's bit for bit; `build()` wraps them
+as CPU tensors (render() moves them to its device).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..accel.bvh_build import build_bvh
+from ..core import transform as tf
+from ..materials.factory import MATERIAL_KINDS, build_templates
+from ..textures.graph import TexGraph, TexNodeMeta, check_node
+from . import data as D
+
+
+@dataclass
+class _Mesh:
+    verts: np.ndarray          # world space [V,3]
+    idx: np.ndarray            # [T,3]
+    normals: Optional[np.ndarray]
+    uv: Optional[np.ndarray]
+    tangents: Optional[np.ndarray]
+    material: int
+    flip: float
+
+
+@dataclass
+class _Light:
+    kind: int
+    l2w: np.ndarray
+    spectrum: np.ndarray
+    params: np.ndarray
+    nsamples: int = 1
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+class SceneBuilder:
+    def __init__(self):
+        self.meshes: List[_Mesh] = []
+        self.materials: List[Tuple[int, List[int], int]] = []
+        self.tex_nodes: List[TexNodeMeta] = []
+        self.tex_fparams: List[np.ndarray] = []
+        self.tex_w2t: List[np.ndarray] = []
+        self.lights: List[_Light] = []
+        self.camera: Optional[D.CameraData] = None
+        self.accel_kind: str = "auto"
+        self._const_cache: Dict[Tuple[float, float, float], int] = {}
+
+    # ---- textures -------------------------------------------------------
+    def add_texture(self, meta: TexNodeMeta, fparams=None) -> int:
+        check_node(meta)
+        fp = np.zeros(16, np.float32)
+        if fparams is not None:
+            fp[: len(fparams)] = np.asarray(fparams, np.float32)
+        self.tex_nodes.append(meta)
+        self.tex_fparams.append(fp)
+        self.tex_w2t.append(np.eye(4, dtype=np.float32))
+        return len(self.tex_nodes) - 1
+
+    def constant_texture(self, value) -> int:
+        v = np.asarray(value, np.float32)
+        if v.ndim == 0:
+            v = np.repeat(v[None], 3)
+        key = tuple(np.round(v, 7).tolist())
+        if key in self._const_cache:
+            return self._const_cache[key]
+        tid = self.add_texture(TexNodeMeta(kind="constant"), fparams=v)
+        self._const_cache[key] = tid
+        return tid
+
+    # ---- materials ------------------------------------------------------
+    def add_material(self, kind: str, tex_slots: List[int],
+                     bump: int = -1) -> int:
+        if kind not in MATERIAL_KINDS:
+            raise NotImplementedError(f'material "{kind}" is not ported')
+        if bump >= 0:
+            raise NotImplementedError("bump mapping is not ported")
+        slots = list(tex_slots) + [-1] * (8 - len(tex_slots))
+        self.materials.append((MATERIAL_KINDS[kind], slots[:8], bump))
+        return len(self.materials) - 1
+
+    def matte(self, kd=(0.5, 0.5, 0.5), sigma=0.0):
+        return self.add_material("matte", [self.constant_texture(kd),
+                                           self.constant_texture(sigma)])
+
+    # ---- shapes ---------------------------------------------------------
+    def add_trianglemesh(self, o2w, indices, P, N=None, uv=None, S=None,
+                         material=0, reverse_orientation=False):
+        """World-space mesh like the reference TriangleMesh ctor
+        (shapes/trianglemesh.cpp:38-64 transforms verts to world)."""
+        o2w = np.asarray(o2w, np.float32)
+        P = np.asarray(P, np.float32).reshape(-1, 3)
+        idx = np.asarray(indices, np.int32).reshape(-1, 3)
+        vw = (P @ o2w[:3, :3].T) + o2w[:3, 3]
+        nw = None
+        if N is not None:
+            n = np.asarray(N, np.float32).reshape(-1, 3)
+            inv = np.linalg.inv(o2w)
+            nw = n @ inv[:3, :3]  # inverse-transpose
+            nw /= np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-12)
+        sw = None
+        if S is not None:
+            s = np.asarray(S, np.float32).reshape(-1, 3)
+            sw = s @ o2w[:3, :3].T
+        uvw = np.asarray(uv, np.float32).reshape(-1, 2) \
+            if uv is not None else None
+        flip = -1.0 if (reverse_orientation ^ tf.swaps_handedness(o2w)) \
+            else 1.0
+        self.meshes.append(_Mesh(vw, idx, nw, uvw, sw, material, flip))
+        return len(self.meshes) - 1
+
+    # ---- lights ---------------------------------------------------------
+    def add_distant_light(self, l2w, L=(1.0,) * 3, frm=(0, 0, 0),
+                          to=(0, 0, 1)):
+        l2w = np.asarray(l2w, np.float32)
+        d = np.asarray(frm, np.float64) - np.asarray(to, np.float64)
+        dw = l2w[:3, :3] @ d
+        dw /= np.linalg.norm(dw)
+        params = np.zeros(8, np.float32)
+        params[0:3] = dw
+        self.lights.append(_Light(D.LIGHT_DISTANT, l2w,
+                                  np.asarray(L, np.float32), params))
+        return len(self.lights) - 1
+
+    def add_infinite_light(self, l2w, L=(1.0,) * 3, nsamples=1):
+        self.lights.append(_Light(D.LIGHT_INFINITE,
+                                  np.asarray(l2w, np.float32),
+                                  np.asarray(L, np.float32),
+                                  np.zeros(8, np.float32), nsamples))
+        return len(self.lights) - 1
+
+    # ---- camera ---------------------------------------------------------
+    def set_camera(self, cam: D.CameraData):
+        self.camera = cam
+
+    # ---- build ----------------------------------------------------------
+    def build(self) -> D.SceneData:
+        if not self.meshes:
+            raise NotImplementedError("scenes without triangles are not "
+                                      "ported")
+        verts_l, idx_l, n_l, uv_l, tan_l = [], [], [], [], []
+        hasn_l, hast_l, mat_l, flip_l = [], [], [], []
+        voff = 0
+        for m in self.meshes:
+            nt, nv = len(m.idx), len(m.verts)
+            verts_l.append(m.verts)
+            idx_l.append(m.idx + voff)
+            n_l.append(m.normals if m.normals is not None
+                       else np.zeros((nv, 3), np.float32))
+            uv_l.append(m.uv if m.uv is not None
+                        else np.zeros((nv, 2), np.float32))
+            tan_l.append(m.tangents if m.tangents is not None
+                         else np.zeros((nv, 3), np.float32))
+            hasn_l.append(np.full(nt, m.normals is not None))
+            hast_l.append(np.full(nt, m.tangents is not None))
+            mat_l.append(np.full(nt, m.material, np.int32))
+            flip_l.append(np.full(nt, m.flip, np.float32))
+            voff += nv
+        nt_total = sum(len(m.idx) for m in self.meshes)
+        tri = D.TriangleTable(
+            verts=_t(np.concatenate(verts_l)), idx=_t(np.concatenate(idx_l)),
+            normals=_t(np.concatenate(n_l)), uv=_t(np.concatenate(uv_l)),
+            tangents=_t(np.concatenate(tan_l)),
+            has_normals=_t(np.concatenate(hasn_l)),
+            has_tangents=_t(np.concatenate(hast_l)),
+            material=_t(np.concatenate(mat_l)),
+            area_light=_t(np.full(nt_total, -1, np.int32)),
+            flip_normal=_t(np.concatenate(flip_l)), count=nt_total)
+
+        if not self.materials:
+            self.matte()
+        mats = self.materials
+        tmpl = build_templates(mats)
+        materials = D.MaterialTable(
+            kind=_t(np.asarray([m[0] for m in mats], np.int32)),
+            tex=_t(np.asarray([m[1] for m in mats], np.int32)),
+            bump=_t(np.asarray([m[2] for m in mats], np.int32)),
+            count=len(mats), has_bump=False,
+            lobe_kinds=tmpl.pop("lobe_kinds"),
+            dist_kinds=tmpl.pop("dist_kinds"),
+            **{k: _t(v) for k, v in tmpl.items()})
+
+        textures = TexGraph(fparams=_t(np.stack(self.tex_fparams)),
+                            w2t=_t(np.stack(self.tex_w2t)),
+                            nodes=tuple(self.tex_nodes))
+
+        nl = len(self.lights)
+        if not nl:
+            raise NotImplementedError("scenes without lights are not ported")
+        ls = self.lights
+        i32 = lambda v: _t(np.asarray(v, np.int32))
+        lt_tab = D.LightTable(
+            kind=i32([l.kind for l in ls]),
+            l2w=_t(np.stack([l.l2w for l in ls])),
+            w2l=_t(np.stack([np.linalg.inv(l.l2w).astype(np.float32)
+                             for l in ls])),
+            spectrum=_t(np.stack([l.spectrum for l in ls])),
+            params=_t(np.stack([l.params for l in ls])),
+            nsamples=i32([l.nsamples for l in ls]),
+            image=i32([-1] * nl), area_geom_kind=i32([0] * nl),
+            area_first=i32([0] * nl), area_count=i32([1] * nl),
+            area_total_area=_t(np.zeros(nl, np.float32)),
+            cdf_offset=i32([2 * i for i in range(nl)]),
+            area_cdf=_t(np.asarray([0.0, 1.0] * nl, np.float32)),
+            count=nl,
+            kinds_present=tuple(sorted({l.kind for l in ls})),
+            kinds_list=tuple(int(l.kind) for l in ls),
+            infinite_meta=tuple((i, -1, -1) for i, l in enumerate(ls)
+                                if l.kind == D.LIGHT_INFINITE),
+            max_area_count=1)
+
+        wlo = np.minimum.reduce([m.verts.min(0) for m in self.meshes])
+        whi = np.maximum.reduce([m.verts.max(0) for m in self.meshes])
+
+        # Accelerator: the BVH above 4096 prims (scene/build.py:759-779).
+        if not (self.accel_kind == "bvh" or
+                (self.accel_kind == "auto" and nt_total > 4096)):
+            raise NotImplementedError(
+                f'accelerator "{self.accel_kind}" for {nt_total} prims is '
+                "not ported (the BVH only: Accelerator \"bvh\" or more than "
+                "4096 triangles)")
+        return D.SceneData(
+            triangles=tri, materials=materials, textures=textures,
+            lights=lt_tab, camera=self.camera, accel=build_bvh(tri),
+            world_bound_lo=_t(wlo.astype(np.float32)),
+            world_bound_hi=_t(whi.astype(np.float32)))

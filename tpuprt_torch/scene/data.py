@@ -1,0 +1,142 @@
+"""The compiled scene as dataclasses of tensors (port of tpuprt/scene/data.py,
+the tables the port renders).
+
+Fields keep the reference's names and layouts; counts and other structure
+the reference marks static stay plain Python values. `-1` is the universal
+"no reference" id. A primitive id is a triangle id: the port builds no
+quadrics, so the reference's quadric offset NQ is 0 throughout.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Tuple
+
+import torch
+
+LIGHT_DISTANT = 2
+LIGHT_AREA = 3
+LIGHT_INFINITE = 4
+
+CAMERA_PERSPECTIVE = 0
+
+
+@dataclass
+class TriangleTable:
+    verts: torch.Tensor        # f32[V,3] world space
+    idx: torch.Tensor          # i32[T,3]
+    normals: torch.Tensor      # f32[V,3] shading normals (zeros if none)
+    uv: torch.Tensor           # f32[V,2]
+    tangents: torch.Tensor     # f32[V,3] shading tangents (zeros if none)
+    has_normals: torch.Tensor  # bool[T]
+    has_tangents: torch.Tensor  # bool[T]
+    material: torch.Tensor     # i32[T]
+    area_light: torch.Tensor   # i32[T]
+    flip_normal: torch.Tensor  # f32[T]
+    count: int = 0
+
+
+@dataclass
+class MaterialTable:
+    """Kind tag + texture slots + the build-time lobe templates
+    (materials/factory.py)."""
+    kind: torch.Tensor         # i32[M]
+    tex: torch.Tensor          # i32[M, 8]
+    bump: torch.Tensor         # i32[M]
+    t_kind: torch.Tensor = None
+    t_flags: torch.Tensor = None
+    t_flip: torch.Tensor = None
+    t_aux0: torch.Tensor = None
+    t_aux1: torch.Tensor = None
+    t_rop: torch.Tensor = None
+    t_ra: torch.Tensor = None
+    t_rb: torch.Tensor = None
+    t_eop: torch.Tensor = None
+    t_ea: torch.Tensor = None
+    t_pop: torch.Tensor = None
+    t_pa: torch.Tensor = None
+    t_pb: torch.Tensor = None
+    count: int = 0
+    lobe_kinds: Tuple = ()
+    dist_kinds: Tuple = ()
+    has_bump: bool = False
+
+
+@dataclass
+class LightTable:
+    """Distant and infinite lights; ``params[0:3]`` of a distant light is
+    its world direction."""
+    kind: torch.Tensor         # i32[L]
+    l2w: torch.Tensor          # f32[L,4,4]
+    w2l: torch.Tensor          # f32[L,4,4]
+    spectrum: torch.Tensor     # f32[L,3]
+    params: torch.Tensor       # f32[L,8]
+    nsamples: torch.Tensor     # i32[L]
+    image: torch.Tensor        # i32[L]
+    area_geom_kind: torch.Tensor
+    area_first: torch.Tensor
+    area_count: torch.Tensor
+    area_total_area: torch.Tensor
+    cdf_offset: torch.Tensor
+    area_cdf: torch.Tensor
+    count: int = 0
+    kinds_present: Tuple = ()
+    kinds_list: Tuple = ()
+    infinite_meta: Tuple = ()   # (light id, image id, importance id)
+    max_area_count: int = 1
+
+
+@dataclass
+class CameraData:
+    kind: int = CAMERA_PERSPECTIVE
+    cam2world: torch.Tensor = None    # f32[4,4]
+    world2cam: torch.Tensor = None
+    raster2cam: torch.Tensor = None
+    cam2screen: torch.Tensor = None
+    lens_radius: torch.Tensor = None  # f32[]
+    focal_distance: torch.Tensor = None
+    shutter_open: torch.Tensor = None
+    shutter_close: torch.Tensor = None
+    cliphither: float = 1e-3
+    clipyon: float = 1e30
+
+
+@dataclass
+class BvhAccel:
+    """The 8-wide skip-link BVH in the tile format the traversal kernel
+    walks (accel/bvh_build.build_tiles): ``nodesT`` rows are param-major,
+    lanes [8k, 8k+8) = param k of the node's 8 payload slots (interior:
+    child boxes lo/hi; leaf: triangle p0/e1/e2/pid); ``nodemeta`` packs
+    depth | rank<<5 | nprims<<8."""
+    bounds_lo: torch.Tensor = None   # f32[3]
+    bounds_hi: torch.Tensor = None   # f32[3]
+    tri9: torch.Tensor = None        # f32[T, 9] packed world-space vertices
+    nodesT: torch.Tensor = None      # f32[NN, 128]
+    nodeskip: torch.Tensor = None    # i32[NN]
+    nodemeta: torch.Tensor = None    # i32[NN]
+    n_nodes: int = 1
+    leaf_k: int = 8
+    n_quadrics: int = 0
+
+
+@dataclass
+class SceneData:
+    triangles: TriangleTable = None
+    materials: MaterialTable = None
+    textures: Any = None             # textures.graph.TexGraph
+    lights: LightTable = None
+    camera: CameraData = None
+    accel: BvhAccel = None
+    world_bound_lo: torch.Tensor = None  # f32[3]
+    world_bound_hi: torch.Tensor = None
+
+
+def to_device(obj, device):
+    """Copy every tensor of a (nested) table dataclass to `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj

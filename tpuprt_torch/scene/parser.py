@@ -1,0 +1,381 @@
+"""pbrt scene-description parser + API state machine (port of
+tpuprt/scene/parser.py for the statements the port renders).
+
+Statements: Film, LookAt, Camera "perspective", Sampler, PixelFilter,
+SurfaceIntegrator, Accelerator, WorldBegin/End, AttributeBegin/End,
+TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
+Texture "checkerboard" and "constant", Material "matte", LightSource
+"infinite" (no map) and "distant", Shape "trianglemesh". Anything else
+raises NotImplementedError naming what is missing.
+
+Bracketed number lists are converted with numpy in one call per list, not
+per token, so a multi-megabyte mesh parses in seconds. Values go through
+float64 to float32 exactly as the reference's per-token Python floats do.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from ..cameras import cameras as cam
+from ..core import transform as tfm
+from ..filters.filters import DEFAULT_WIDTHS
+from ..samplers.samplers import SamplerConfig
+from ..textures.graph import TexNodeMeta
+from . import data as D
+from .build import SceneBuilder
+
+_TOKEN_RE = re.compile(r'"([^"]*)"|\[|\]|([^\s"\[\]]+)')
+
+
+def tokenize(text: str):
+    """Tokens as (kind, value): ("str", s), ("id", s), or ("nums", f64
+    array) for a bracketed list of numbers; ("list", [...]) for a bracketed
+    list holding strings. # comments run to the end of the line."""
+    text = "\n".join(line.split("#", 1)[0] for line in text.splitlines())
+    pos, n = 0, len(text)
+    toks = []
+    while True:
+        m = _TOKEN_RE.search(text, pos)
+        if m is None:
+            break
+        pos = m.end()
+        if m.group(1) is not None:
+            toks.append(("str", m.group(1)))
+        elif m.group(0) == "[":
+            end = text.find("]", pos)
+            if end < 0:
+                end = n
+            body = text[pos:end]
+            pos = end + 1
+            if '"' in body:
+                toks.append(("list", re.findall(r'"([^"]*)"', body)))
+            else:
+                toks.append(("nums", np.array(body.split(), np.float64)))
+        elif m.group(0) == "]":
+            raise ValueError("unbalanced ']' in scene text")
+        else:
+            toks.append(("id", m.group(2)))
+    return toks
+
+
+def _value_list(kind, value):
+    if kind == "nums":
+        return value
+    if kind == "list":
+        return list(value)
+    if kind == "str":
+        return [value]
+    return np.array([float(value)], np.float64)
+
+
+class ParamSet:
+    """Typed lookup with defaults (core/paramset.h FindOne* semantics)."""
+
+    def __init__(self, raw: Dict[str, Tuple[str, object]]):
+        self.raw = raw
+
+    def find_one(self, name, default):
+        if name not in self.raw:
+            return default
+        vals = self.raw[name][1]
+        v = vals[0] if len(vals) else default
+        if isinstance(default, bool):
+            return v == "true" if isinstance(v, str) else bool(v)
+        if isinstance(default, float):
+            return float(v)
+        if isinstance(default, int):
+            return int(v)
+        return v
+
+    def find_spectrum(self, name, default):
+        if name not in self.raw:
+            return np.asarray(default, np.float32)
+        vals = np.asarray(self.raw[name][1], np.float64)
+        if len(vals) == 1:
+            return np.full(3, vals[0], np.float32)
+        return vals[:3].astype(np.float32)
+
+    def find_point(self, name, default):
+        if name not in self.raw:
+            return np.asarray(default, np.float32)
+        return np.asarray(self.raw[name][1][:3], np.float64).astype(
+            np.float32)
+
+    def find_floats(self, name):
+        if name not in self.raw:
+            return None
+        return np.asarray(self.raw[name][1], np.float64).astype(np.float32)
+
+    def find_ints(self, name):
+        if name not in self.raw:
+            return None
+        return np.asarray(self.raw[name][1], np.float64).astype(np.int32)
+
+    def is_texture(self, name):
+        return name in self.raw and self.raw[name][0] == "texture"
+
+    def texture_name(self, name):
+        return self.raw[name][1][0]
+
+
+class _Stream:
+    def __init__(self, toks):
+        self.toks = toks
+        self.i = 0
+
+    def peek(self):
+        return self.toks[self.i] if self.i < len(self.toks) else None
+
+    def next(self):
+        t = self.peek()
+        self.i += 1
+        return t
+
+    def numbers(self, count):
+        """`count` numbers, bare or bracketed (LookAt, Translate, ...)."""
+        out = []
+        while len(out) < count:
+            kind, v = self.next()
+            out.extend(v.tolist() if kind == "nums" else [float(v)])
+        return out
+
+    def params(self):
+        """'"type name" values' pairs until the next statement; a value is
+        a bracketed list or one bare token (_parse_value_list)."""
+        params = {}
+        while self.peek() is not None and self.peek()[0] == "str":
+            decl = self.next()[1].split()
+            if self.peek() is None:
+                break
+            kind, v = self.next()
+            if len(decl) == 2:
+                params[decl[1]] = (decl[0], _value_list(kind, v))
+        return ParamSet(params)
+
+
+class PbrtParser:
+    """The API state machine (core/api.cpp) driving a SceneBuilder."""
+
+    def __init__(self):
+        self.builder = SceneBuilder()
+        self.ctm = np.eye(4, dtype=np.float32)
+        self.ctm_stack: List[np.ndarray] = []
+        self.material = ("matte", ParamSet({}))
+        self.material_id = None
+        self.gs_stack: List[tuple] = []
+        self.named_textures: Dict[str, int] = {}
+        self.camera_name = "perspective"
+        self.camera_params = ParamSet({})
+        self.camera_w2c = np.eye(4, dtype=np.float32)
+        self.sampler_name = "bestcandidate"
+        self.sampler_params = ParamSet({})
+        self.film_params = ParamSet({})
+        self.filter_name = "mitchell"
+        self.filter_params = ParamSet({})
+        self.integrator_name = "directlighting"
+        self.integrator_params = ParamSet({})
+
+    def parse_string(self, text: str):
+        ts = _Stream(tokenize(text))
+        while ts.peek() is not None:
+            kind, tok = ts.next()
+            if kind == "id":
+                self._directive(tok, ts)
+
+    def _directive(self, name: str, ts: _Stream):
+        if name == "LookAt":
+            v = ts.numbers(9)
+            w2c = np.linalg.inv(np.asarray(
+                tfm.look_at(v[0:3], v[3:6], v[6:9]), np.float32))
+            self.ctm = self.ctm @ w2c
+        elif name == "Translate":
+            self.ctm = self.ctm @ tfm.translate(ts.numbers(3))
+        elif name == "Scale":
+            self.ctm = self.ctm @ tfm.scale(*ts.numbers(3))
+        elif name == "Rotate":
+            v = ts.numbers(4)
+            self.ctm = self.ctm @ tfm.rotate(v[0], v[1:4])
+        elif name in ("Transform", "ConcatTransform"):
+            m = np.asarray(ts.numbers(16), np.float32).reshape(4, 4).T
+            self.ctm = m if name == "Transform" else self.ctm @ m
+        elif name == "AttributeBegin":
+            self.gs_stack.append((self.material, self.material_id))
+            self.ctm_stack.append(self.ctm.copy())
+        elif name == "AttributeEnd":
+            self.material, self.material_id = self.gs_stack.pop()
+            self.ctm = self.ctm_stack.pop()
+        elif name == "TransformBegin":
+            self.ctm_stack.append(self.ctm.copy())
+        elif name == "TransformEnd":
+            self.ctm = self.ctm_stack.pop()
+        elif name == "WorldBegin":
+            self.ctm = np.eye(4, dtype=np.float32)
+        elif name == "WorldEnd":
+            pass
+        elif name == "Camera":
+            self.camera_name = ts.next()[1]
+            self.camera_params = ts.params()
+            self.camera_w2c = self.ctm.copy()
+        elif name == "Sampler":
+            self.sampler_name = ts.next()[1]
+            self.sampler_params = ts.params()
+        elif name == "Film":
+            ts.next()  # "image"
+            self.film_params = ts.params()
+        elif name == "PixelFilter":
+            self.filter_name = ts.next()[1]
+            self.filter_params = ts.params()
+        elif name == "SurfaceIntegrator":
+            self.integrator_name = ts.next()[1]
+            self.integrator_params = ts.params()
+        elif name == "Accelerator":
+            self.builder.accel_kind = ts.next()[1]
+            ts.params()
+        elif name == "Material":
+            self.material = (ts.next()[1], ts.params())
+            self.material_id = None
+        elif name == "Texture":
+            tex_name = ts.next()[1]
+            ts.next()                 # "float" | "color": constants of
+            tex_class = ts.next()[1]  # either type are rgb nodes
+            self.named_textures[tex_name] = self._make_texture(
+                tex_class, ts.params())
+        elif name == "LightSource":
+            self._make_light(ts.next()[1], ts.params())
+        elif name == "Shape":
+            self._make_shape(ts.next()[1], ts.params())
+        else:
+            raise NotImplementedError(f'statement "{name}" is not ported')
+
+    def _child(self, params, name, default, is_float=False) -> int:
+        """TextureParams::Get*Texture (core/paramset.h:162-215)."""
+        if params.is_texture(name):
+            return self.named_textures[params.texture_name(name)]
+        if is_float:
+            return self.builder.constant_texture(
+                params.find_one(name, float(default)))
+        return self.builder.constant_texture(
+            params.find_spectrum(name, default))
+
+    def _material_id(self) -> int:
+        if self.material_id is None:
+            kind, params = self.material
+            if kind != "matte":
+                raise NotImplementedError(f'material "{kind}" is not ported')
+            if params.is_texture("bumpmap"):
+                raise NotImplementedError("bump mapping is not ported")
+            self.material_id = self.builder.add_material("matte", [
+                self._child(params, "Kd", (0.5,) * 3),
+                self._child(params, "sigma", 0.0, True)])
+        return self.material_id
+
+    def _make_texture(self, tex_class, params) -> int:
+        if tex_class == "constant":
+            return self.builder.constant_texture(
+                params.find_spectrum("value", (1.0,) * 3))
+        if tex_class != "checkerboard":
+            raise NotImplementedError(f'texture "{tex_class}" is not ported')
+        if params.find_one("dimension", 2) != 2:
+            raise NotImplementedError("3D checkerboard is not ported")
+        fp = np.zeros(16, np.float32)
+        fp[8] = params.find_one("uscale", 1.0)
+        fp[9] = params.find_one("vscale", 1.0)
+        fp[10] = params.find_one("udelta", 0.0)
+        fp[11] = params.find_one("vdelta", 0.0)
+        return self.builder.add_texture(TexNodeMeta(
+            kind="checkerboard2d", mapping=params.find_one("mapping", "uv"),
+            aamode=params.find_one("aamode", "closedform"),
+            children=(self._child(params, "tex1", (1,) * 3),
+                      self._child(params, "tex2", (0,) * 3))),
+            fparams=fp)
+
+    def _make_light(self, kind: str, params: ParamSet):
+        if kind == "distant":
+            self.builder.add_distant_light(
+                self.ctm, params.find_spectrum("L", (1.0,) * 3),
+                params.find_point("from", (0, 0, 0)),
+                params.find_point("to", (0, 0, 1)))
+        elif kind == "infinite" and not params.find_one("mapname", ""):
+            self.builder.add_infinite_light(
+                self.ctm, params.find_spectrum("L", (1.0,) * 3),
+                params.find_one("nsamples", 1))
+        else:
+            raise NotImplementedError(
+                f'light "{kind}" is not ported (distant, and infinite '
+                "without a map)")
+
+    def _make_shape(self, kind: str, params: ParamSet):
+        if kind != "trianglemesh":
+            raise NotImplementedError(f'shape "{kind}" is not ported')
+        uv = params.find_floats("uv")
+        if uv is None:
+            uv = params.find_floats("st")
+        self.builder.add_trianglemesh(
+            self.ctm, params.find_ints("indices"), params.find_floats("P"),
+            params.find_floats("N"), uv, params.find_floats("S"),
+            self._material_id())
+
+    def finish(self):
+        """MakeScene (api.cpp:484-529): camera + scene + options."""
+        from ..render import RenderOptions
+        fp = self.film_params
+        xres = fp.find_one("xresolution", 640)
+        yres = fp.find_one("yresolution", 480)
+        crop = fp.find_floats("cropwindow")
+        crop = tuple(float(c) for c in crop) if crop is not None \
+            else (0.0, 1.0, 0.0, 1.0)
+        if self.camera_name != "perspective":
+            raise NotImplementedError(
+                f'camera "{self.camera_name}" is not ported')
+        c2w = np.linalg.inv(self.camera_w2c).astype(np.float32)
+        p = self.camera_params
+        hither = max(1e-4, p.find_one("hither", 1e-3))
+        yon = min(p.find_one("yon", 1e30), 1e30)
+        frameaspect = p.find_one("frameaspectratio",
+                                 float(xres) / float(yres))
+        screen = p.find_floats("screenwindow")
+        if screen is None:
+            screen = cam.default_screen_window(xres, yres, frameaspect)
+        self.builder.set_camera(cam.build_projective(
+            D.CAMERA_PERSPECTIVE, c2w,
+            np.asarray(tfm.perspective(p.find_one("fov", 90.0), hither, yon)),
+            screen, xres, yres, hither, yon,
+            p.find_one("shutteropen", 0.0), p.find_one("shutterclose", 1.0),
+            p.find_one("lensradius", 0.0), p.find_one("focaldistance", 1e30)))
+        if self.sampler_name != "lowdiscrepancy":
+            raise NotImplementedError(
+                f'sampler "{self.sampler_name}" is not ported')
+        scfg = SamplerConfig(
+            kind="lowdiscrepancy",
+            pixelsamples=self.sampler_params.find_one("pixelsamples", 4))
+        if self.filter_name not in DEFAULT_WIDTHS:
+            raise NotImplementedError(
+                f'pixel filter "{self.filter_name}" is not ported')
+        fw = DEFAULT_WIDTHS[self.filter_name]
+        if self.integrator_name != "directlighting":
+            raise NotImplementedError(
+                f'integrator "{self.integrator_name}" is not ported')
+        opts = RenderOptions(
+            xres=xres, yres=yres, sampler=scfg, filter_kind=self.filter_name,
+            filter_xwidth=self.filter_params.find_one("xwidth", fw[0]),
+            filter_ywidth=self.filter_params.find_one("ywidth", fw[1]),
+            integrator="directlighting",
+            max_depth=self.integrator_params.find_one("maxdepth", 5),
+            filename=fp.find_one("filename", "pbrt.exr"), crop=crop)
+        return self.builder.build(), opts
+
+
+def load_scene(path: str):
+    """Parse a pbrt file: returns (SceneData on the CPU, RenderOptions)."""
+    with open(path) as f:
+        return load_scene_string(f.read())
+
+
+def load_scene_string(text: str):
+    p = PbrtParser()
+    p.parse_string(text)
+    return p.finish()
