@@ -5,28 +5,48 @@
 
 Phases, one JSON line each; any failure raises and exits nonzero:
 
-1. build   -- compile ``tpuprt_torch/ops/csrc/bvh_tiles.cu`` with nvcc.
-2. parity  -- config4_big (100K triangles, NN <= 22000 tile rows): its
+1. build   -- compile ``tpuprt_torch/ops/csrc/bvh_tiles.cu`` and
+   ``bvh_rows.cu`` with nvcc, both at once.
+2. parity  -- config4_big (100K triangles, NN <= 22000 rows): its
    512x512x4 camera rays and 256K random rays, nearest and any-hit, through
-   the kernel and through its plain torch version on the card.
+   the tile walk and the row walk and through their plain torch versions
+   on the card.
 3. parity  -- the 1M-triangle terrain (NN > 22000, the contract of the
-   TPU's chunked tile walk), 64K random rays, both modes.
+   TPU's chunked walks), 64K random rays, both kernels, both modes.
 4. render  -- config4_big at full size through load_scene -> render ->
-   write_exr on the card; the kernel's launch count must be > 0, the image
-   finite and inside a band around scenes/bench4.exr.
+   write_exr on the card (the tile walk); the kernel's launch count must be
+   > 0, the image finite and inside a band around scenes/bench4.exr.
+5. render  -- the same scene with its BVH in row format only (the state a
+   tree too deep for the tile walk leaves it in): the row walk's launch
+   count must be > 0, the image inside the same band.
+6. parity  -- the rocks scene (config4_big + 1000 ObjectInstances of a
+   1280-triangle rock): its camera rays and 256K random rays through the
+   instanced walk and its plain version, both modes.
+7. render  -- the rocks scene through load_scene_string -> render ->
+   write_exr: the tile and instanced walks' launch counts must be > 0, the
+   image finite and, against the same rocks duplicated into the main mesh
+   (1.38M triangles), inside test_instances' band.
 
-Then the card's name and power limit, the kernel table, and as the last
-line ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-nonzero and prints no result. ``--exr PATH`` also keeps the rendered image;
-``--profile`` profiles one more render (phase "profile").
+Each parity line carries the kernel's and the plain version's times and
+the kernel's bound (the least time the card could take: the bytes it must
+move over the memory rate, or the ray-box, ray-triangle and transform
+operations these rays need, counted by the plain version, over the f32
+rate; for the instanced walk, only the entries a ray's final window meets,
+not the kernel's test of every entry box). Then the card's name and power
+limit, the kernel table, and as the last line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits nonzero and prints no result.
+``--exr PATH`` also keeps config4_big's image; ``--profile`` profiles one
+more render of config4_big and of the rocks scene (phase "profile").
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "scenes", "config4_big.pbrt")
@@ -42,10 +62,84 @@ BAND_REL = 2 * 0.008569
 BAND_MEAN = 2 * 0.000317
 T_RTOL = 1e-6             # kernel vs plain: t agreement (relative)
 SCALE_TERRAIN_N = 708     # bench.py's 1M-triangle terrain grid
+N_ROCKS, ROCK_SUBDIV, ROCK_SEED = 1000, 3, 1
+# Instanced vs duplicated rocks: tests/test_instances.py's tolerance
+# (atol = rtol = 2e-3) on at least this share of pixels, and at most this
+# relative difference of the image means.
+DUP_CLOSE, DUP_SHARE, DUP_MEAN = 2e-3, 0.995, 1e-3
+
+# The bound. Published H100 SXM peaks (NVIDIA's H100 datasheet): HBM
+# 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s. Operations per test,
+# as the kernels compute them: a slab test (of a node's or an instance
+# entry's box) is 6 sub + 6 mul, 12 min/max, the window clip (min, mul)
+# and a compare; a Moller-Trumbore test 56 (the tile walk's edges come
+# precomputed) or 62 (the row walk forms them); a ray moved into an
+# instance's object space 45 (two 3x4 transforms and three safe
+# reciprocals). Bytes of a row-format node: the 88 of its 128 columns the
+# walks read (box, skip, nprims, 8 triangles, 8 ids).
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+SLAB_OPS, XFORM_OPS = 27, 45
+ROW_BYTES = 88 * 4
+TRI_OPS = {"bvh_tiles": 56, "bvh_rows": 62, "bvh_instanced": 62}
+REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:860",
+            "bvh_rows": "tpuprt/ops/bvh_pallas.py:457",
+            "bvh_instanced": "tpuprt/ops/bvh_pallas.py:1182"}
+ALSO_REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:1010",
+                 "bvh_rows": "tpuprt/ops/bvh_pallas.py:558"}
 
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+def rocks_scene_text(base_text, n_rocks, subdiv, seed):
+    """`base_text` (a config4-style terrain scene) with `n_rocks` instances
+    of one rock inserted before its WorldEnd.
+
+    The rock is ObjectBegin "rock": tools/make_scenes.icosphere(subdiv)
+    with each vertex pushed out radially by a seeded factor in [0.8, 1.2],
+    the sphere's directions as "normal N", a spherical "float uv", and its
+    own matte material (1280 triangles at subdiv 3). The instances sit on a
+    seeded, jittered 40 x 25 grid over [-0.95, 0.95]^2 (n_rocks < 1000
+    take evenly spaced cells), on the terrain's height function
+    (make_scenes.terrain), with a uniform yaw and a scale in [0.015, 0.04];
+    every 10th is mirrored (Scale -1 1 1) and every 7th scaled by k in
+    [0.5, 1.5] along y (a non-uniform scale)."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_scenes import icosphere
+    rng = np.random.default_rng(seed)
+    dirs, faces = icosphere(subdiv)
+    verts = dirs * rng.uniform(0.8, 1.2, (len(dirs), 1)).astype(np.float32)
+    u = 0.5 + np.arctan2(dirs[:, 2], dirs[:, 0]) / (2 * np.pi)
+    v = np.arccos(np.clip(dirs[:, 1], -1.0, 1.0)) / np.pi
+
+    def nums(a):
+        return " ".join(f"{x:.6g}" for x in np.asarray(a).ravel())
+
+    out = ['ObjectBegin "rock"\n',
+           'Material "matte" "color Kd" [0.45 0.42 0.40]\n',
+           f'Shape "trianglemesh" "integer indices" [{nums(faces)}]\n',
+           f'  "point P" [{nums(verts)}]\n  "normal N" [{nums(dirs)}]\n',
+           f'  "float uv" [{nums(np.stack([u, v], 1))}]\n', "ObjectEnd\n"]
+    nx, nz = 40, 25
+    for i in range(n_rocks):
+        cell = i * (nx * nz) // n_rocks
+        x = -0.95 + (cell % nx + 0.5 + rng.uniform(-0.3, 0.3)) * 1.9 / nx
+        z = -0.95 + (cell // nx + 0.5 + rng.uniform(-0.3, 0.3)) * 1.9 / nz
+        h = 0.35 * (np.sin(3.1 * x) * np.cos(2.7 * z) +
+                    0.4 * np.sin(7.3 * x + 1.1) * np.sin(6.1 * z))
+        s = rng.uniform(0.015, 0.04)
+        out.append(f"AttributeBegin\n  Translate {x:.6g} {h:.6g} {z:.6g}\n"
+                   f"  Rotate {rng.uniform(0.0, 360.0):.6g} 0 1 0\n"
+                   f"  Scale {s:.6g} {s:.6g} {s:.6g}\n")
+        if i % 10 == 0:
+            out.append("  Scale -1 1 1\n")
+        if i % 7 == 3:
+            out.append(f"  Scale 1 {rng.uniform(0.5, 1.5):.6g} 1\n")
+        out.append('  ObjectInstance "rock"\nAttributeEnd\n')
+    cut = base_text.rindex("WorldEnd")
+    return base_text[:cut] + "".join(out) + base_text[cut:]
 
 
 def random_rays(n, seed):
@@ -86,7 +180,7 @@ def camera_rays(scene, opts, device):
 
 
 def sort_packed(bvh, rays):
-    """The front end's coherence order (ops/bvh_cuda.intersect), so the
+    """The front end's coherence order (ops/bvh_cuda.intersect), so a
     kernel is timed on rays as the render hands them over."""
     from tpuprt_torch.ops import bvh_cuda
     order = bvh_cuda.sort_key(bvh, rays[0:3].T, rays[3:6].T).argsort(
@@ -113,45 +207,108 @@ def timed(fn, reps=5):
 
 
 def compare(ref, got):
-    """Kernel (t, id) against the plain version's: equal hit masks, equal
-    ids where both hit except at ties (t equal within T_RTOL), t within
-    T_RTOL relative. Returns the counts; the caller fails on any."""
+    """Kernel (t, id[, inst]) against the plain version's: equal hit masks,
+    equal ids (and instances) where both hit except at ties (t equal
+    within T_RTOL), t within T_RTOL relative. Returns the counts."""
     import torch
-    t_ref, id_ref = ref
-    t, ids = got
+    t_ref, id_ref = ref[0], ref[1]
+    t, ids = got[0], got[1]
     hit_ref, hit = id_ref >= 0, ids >= 0
     both = hit_ref & hit
     rel = (t - t_ref).abs() / t_ref.abs().clamp(min=1e-30)
     tie = rel <= T_RTOL
+    differ = torch.zeros_like(both)
+    for a, b in zip(ref[1:], got[1:]):
+        differ |= a != b
     return dict(
         rays=int(t.numel()), hits=int(hit_ref.sum()),
         hit_mask_mismatch=int((hit_ref != hit).sum()),
-        id_mismatch=int((both & (ids != id_ref) & ~tie).sum()),
-        id_mismatch_at_ties=int((both & (ids != id_ref) & tie).sum()),
+        id_mismatch=int((both & differ & ~tie).sum()),
+        id_mismatch_at_ties=int((both & differ & tie).sum()),
         t_rel_max=float(torch.where(both, rel, 0.0).max()),
         max_abs_err=float(torch.where(both, (t - t_ref).abs(), 0.0).max()))
 
 
-def parity(label, bvh, rays, reps=5):
-    """Kernel vs plain version on one packed ray set, both modes."""
-    from tpuprt_torch.ops import bvh_cuda
+def bound(name, nbytes, counts):
+    """(ms, "bytes" | "operations", ops): the larger of the bytes over the
+    memory rate and the counted tests' operations over the f32 rate."""
+    ops = SLAB_OPS * (counts["slab"] + counts.get("entry", 0)) + \
+        TRI_OPS[name] * counts["tri"] + XFORM_OPS * counts.get("xform", 0)
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops)
+
+
+def parity(label, name, kernel, ref, table_bytes, rays, reps=5):
+    """Kernel vs plain version on one packed ray set, both modes: nearest
+    must agree per ray (masks, ids outside ties, t), any-hit in its masks.
+    `kernel(rays, any_hit)` and `ref(rays, any_hit, with_counts)` return
+    (t, id[, inst][, counts])."""
     results = []
     for any_hit in (False, True):
-        args = (bvh.nodesT, bvh.nodeskip, bvh.nodemeta, rays)
-        kw = dict(nn=bvh.n_nodes, any_hit=any_hit)
-        ms, got = timed(lambda: bvh_cuda.traverse_tiles(*args, **kw), reps)
-        plain_ms, ref = timed(
-            lambda: bvh_cuda.traverse_tiles_ref(*args, **kw), reps)
-        r = compare(ref, got)
-        r.update(phase="parity", set=label, nn=bvh.n_nodes,
+        ms, got = timed(lambda: kernel(rays, any_hit), reps)
+        plain_ms, _ = timed(lambda: ref(rays, any_hit, False), reps)
+        *want, counts = ref(rays, any_hit, True)
+        r = compare(want, got)
+        n = rays.shape[1]
+        nbytes = table_bytes + rays.numel() * 4 + 4 * len(got) * n
+        bound_ms, bound_by, ops = bound(name, nbytes, counts)
+        r.update(phase="parity", kernel=name, set=label,
                  mode="any" if any_hit else "nearest", ms=ms,
-                 plain_ms=plain_ms)
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 bytes=nbytes, ops=ops, counts=counts)
         emit(**r)
-        if r["hit_mask_mismatch"] or r["id_mismatch"] or \
-                r["t_rel_max"] > T_RTOL:
-            raise AssertionError(f"kernel disagrees with plain version: {r}")
+        bad = r["hit_mask_mismatch"] or (not any_hit and (
+            r["id_mismatch"] or r["t_rel_max"] > T_RTOL))
+        if bad:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{r}")
         results.append(r)
     return results
+
+
+def tiles_parity(label, bvh, rays, reps=5):
+    from tpuprt_torch.ops import bvh_cuda
+    args = (bvh.nodesT, bvh.nodeskip, bvh.nodemeta)
+    return parity(
+        label, "bvh_tiles",
+        lambda r, a: bvh_cuda.traverse_tiles(*args, r, nn=bvh.n_nodes,
+                                             any_hit=a),
+        lambda r, a, c: bvh_cuda.traverse_tiles_ref(
+            *args, r, nn=bvh.n_nodes, any_hit=a, with_counts=c),
+        bvh.n_nodes * (128 * 4 + 8), rays, reps)
+
+
+def rows_parity(label, bvh, rays, reps=5):
+    from tpuprt_torch.ops import bvh_cuda
+    return parity(
+        label, "bvh_rows",
+        lambda r, a: bvh_cuda.traverse_rows(bvh.nodes, r, nn=bvh.n_nodes,
+                                            any_hit=a),
+        lambda r, a, c: bvh_cuda.traverse_rows_ref(
+            bvh.nodes, r, nn=bvh.n_nodes, any_hit=a, with_counts=c),
+        bvh.n_nodes * ROW_BYTES, rays, reps)
+
+
+def instanced_parity(label, inst, rays, reps=5):
+    from tpuprt_torch.ops import bvh_cuda
+    w2o12 = inst.inst_w2o[:, :3, :].reshape(inst.count, 12).contiguous()
+    args = (inst.nodes, inst.entry_block, inst.entry_inst, inst.entry_start,
+            inst.entry_stop, inst.entry_bbox, w2o12)
+    # The used rows of each prototype block once, 4 ints and a 6-float box
+    # per entry, 12 floats per instance.
+    used = dict(zip(inst.entry_block.tolist(),
+                    (inst.entry_stop - inst.entry_start).tolist()))
+    table_bytes = sum(used.values()) * ROW_BYTES + \
+        inst.n_entries * 10 * 4 + w2o12.numel() * 4
+    return parity(
+        label, "bvh_instanced",
+        lambda r, a: bvh_cuda.traverse_instanced(*args, r,
+                                                 cap=inst.block_cap,
+                                                 any_hit=a),
+        lambda r, a, c: bvh_cuda.traverse_instanced_ref(
+            *args, r, cap=inst.block_cap, any_hit=a, with_counts=c),
+        table_bytes, rays, reps)
 
 
 def scale_scene(device):
@@ -178,6 +335,26 @@ def scale_scene(device):
     return to_device(b.build(), device), len(f)
 
 
+def rocks_scenes(text):
+    """The rocks scene as parsed (instanced), and the same scene with every
+    instance's prototype added to the main mesh under its o2w through
+    SceneBuilder.add_trianglemesh (duplicated). Returns (instanced,
+    duplicated, opts)."""
+    from tpuprt_torch.scene.parser import PbrtParser
+    p = PbrtParser()
+    p.parse_string(text)
+    inst, opts = p.finish()
+    b = p.builder
+    for proto_id, o2w in b.instances:
+        pr = b.protos[proto_id]
+        b.add_trianglemesh(o2w, pr["idx"], pr["verts"], N=pr["normals"],
+                           uv=pr["uv"], material=pr["material"],
+                           reverse_orientation=pr["flip"] < 0)
+    b.protos, b.instances = [], []
+    dup, _ = p.finish()
+    return inst, dup, opts
+
+
 def band(rgb, ref):
     """test_golden._compare's measures: blurred (4x4 box) relative error on
     lit regions, and the relative difference of the means."""
@@ -195,9 +372,39 @@ def band(rgb, ref):
     return rel, mean
 
 
-def profile_render(scene, opts, device):
+def render_path(label, scene, opts, device, need, exr=None):
+    """One main-path run: counts set to 0, render, counts read, image
+    written and read back, then a second render timed. Fails unless every
+    kernel in `need` launched. Returns (rgb, launches, first_s, wall_s)."""
+    import numpy as np
+    from tpuprt_torch import render as R
+    from tpuprt_torch.io.exr import read_exr, write_exr
+    from tpuprt_torch.ops import bvh_cuda
+    for k in bvh_cuda.launches:
+        bvh_cuda.launches[k] = 0
+    t0 = time.perf_counter()
+    rgb, alpha = R.render(scene, opts, device=device)
+    first_s = time.perf_counter() - t0
+    launches = dict(bvh_cuda.launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = exr or os.path.join(tmp, opts.filename)
+        write_exr(out, rgb, alpha)
+        back, _ = read_exr(out)
+    t0 = time.perf_counter()
+    R.render(scene, opts, device=device)
+    wall = time.perf_counter() - t0
+    missing = [k for k in need if not launches[k]]
+    if missing:
+        raise AssertionError(f"{label}: the render launched no {missing}")
+    if rgb.shape != (opts.yres, opts.xres, 3) or back.shape != rgb.shape \
+            or not np.isfinite(rgb).all():
+        raise AssertionError(f"{label}: bad image {rgb.shape}")
+    return rgb, launches, first_s, wall
+
+
+def profile_render(label, scene, opts, device):
     """One more render under torch.profiler: device time by kernel name
-    (top 12), the traversal kernel's share, and the device's idle share of
+    (top 12), each traversal kernel's time, and the device's idle share of
     the render's wall time (one stream, so kernels do not overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -216,19 +423,22 @@ def profile_render(scene, opts, device):
                 ev.time_range.elapsed_us() / 1e3
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    trav = sum(v for k, v in kernels.items() if "bvh_tiles" in k)
-    emit(phase="profile", scene="config4_big", wall_ms=wall * 1e3,
+    trav = {name: sum(v for k, v in kernels.items() if name + "_kernel" in k)
+            for name in REPLACES}
+    emit(phase="profile", scene=label, wall_ms=wall * 1e3,
          device_busy_ms=busy, device_idle_share=1.0 - busy / (wall * 1e3),
-         traversal_ms=trav, traversal_share_of_busy=trav / max(busy, 1e-9),
+         traversal_ms=trav,
+         traversal_share_of_busy=sum(trav.values()) / max(busy, 1e-9),
          n_device_ops=len(kernels), top_ms=[[k[:80], v] for k, v in top])
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--exr", help="also keep the rendered image here")
+    ap.add_argument("--exr", help="also keep config4_big's rendered image "
+                    "here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more render: device time by "
-                    "kernel and the device's idle share")
+                    help="also profile one more render of each scene: "
+                    "device time by kernel and the device's idle share")
     args = ap.parse_args(argv)
 
     import torch
@@ -237,8 +447,7 @@ def main(argv=None):
         return 1
     sys.path.insert(0, ROOT)
     import numpy as np
-    from tpuprt_torch import render as R
-    from tpuprt_torch.io.exr import read_exr, write_exr
+    from tpuprt_torch.io.exr import read_exr
     from tpuprt_torch.ops import bvh_cuda
     from tpuprt_torch.scene.data import to_device
     from tpuprt_torch.scene.parser import load_scene
@@ -249,13 +458,19 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    # 1. Build the kernel from the checkout's source.
+    # 1. Build both kernel sources from the checkout, one nvcc each, at once.
+    def build(src):
+        t0 = time.perf_counter()
+        bvh_cuda.build(src)
+        return time.perf_counter() - t0
+    srcs = (bvh_cuda.KERNEL_SRC, bvh_cuda.ROWS_SRC)
     t0 = time.perf_counter()
-    bvh_cuda.load_kernel()
-    emit(phase="build", source=os.path.relpath(bvh_cuda.KERNEL_SRC, ROOT),
-         seconds=time.perf_counter() - t0)
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        secs = list(ex.map(build, srcs))
+    emit(phase="build", sources=[os.path.relpath(s, ROOT) for s in srcs],
+         seconds=secs, wall_seconds=time.perf_counter() - t0)
 
-    # 2. Kernel vs plain version at config4_big (NN <= 22000).
+    # 2. Kernels vs plain versions at config4_big (NN <= 22000).
     t0 = time.perf_counter()
     scene, opts = load_scene(SCENE)
     load_s = time.perf_counter() - t0
@@ -264,69 +479,131 @@ def main(argv=None):
     emit(phase="load", scene="config4_big", seconds=load_s,
          triangles=scene.triangles.count, nn=bvh.n_nodes)
     assert bvh.n_nodes <= 22000, bvh.n_nodes
+    res = {k: [] for k in REPLACES}
     cam_rays = sort_packed(bvh, camera_rays(scene_d, opts, device))
     rnd_rays = sort_packed(bvh, torch.from_numpy(random_rays(1 << 18, 1))
                            .to(device))
-    res = parity("config4_big/camera", bvh, cam_rays)
-    res += parity("config4_big/random", bvh, rnd_rays)
+    for name, fn in (("bvh_tiles", tiles_parity), ("bvh_rows", rows_parity)):
+        res[name] += fn("config4_big/camera", bvh, cam_rays)
+        res[name] += fn("config4_big/random", bvh, rnd_rays)
     del cam_rays, rnd_rays
 
-    # 3. Kernel vs plain version above 22000 nodes (1M triangles).
+    # 3. Kernels vs plain versions above 22000 nodes (1M triangles).
     t0 = time.perf_counter()
     big, ntris = scale_scene(device)
     emit(phase="load", scene=f"terrain({SCALE_TERRAIN_N})",
          seconds=time.perf_counter() - t0, triangles=ntris,
          nn=big.accel.n_nodes)
     assert big.accel.n_nodes > 22000, big.accel.n_nodes
-    res += parity(f"terrain{SCALE_TERRAIN_N}/random", big.accel,
-                  sort_packed(big.accel, torch.from_numpy(
-                      random_rays(1 << 16, 2)).to(device)), reps=3)
-    del big
+    rays = sort_packed(big.accel, torch.from_numpy(random_rays(1 << 16, 2))
+                       .to(device))
+    label = f"terrain{SCALE_TERRAIN_N}/random"
+    res["bvh_tiles"] += tiles_parity(label, big.accel, rays, reps=3)
+    res["bvh_rows"] += rows_parity(label, big.accel, rays, reps=3)
+    del big, rays
 
-    # 4. The main path: load_scene -> render -> write_exr on the card, with
+    # 4. Main path, tile walk: load_scene -> render -> write_exr with
     # bench.py's settings for config4_big (2^17 lanes, f16 readback).
     ref, _ = read_exr(GOLDEN)
     opts = opts._replace(chunk_size=1 << 17, half_readback=True)
-    bvh_cuda.launches = 0
-    t0 = time.perf_counter()
-    rgb, alpha = R.render(scene, opts, device=device)
-    first_s = time.perf_counter() - t0
-    launches = bvh_cuda.launches
-    with tempfile.TemporaryDirectory() as tmp:
-        out = args.exr or os.path.join(tmp, opts.filename)
-        write_exr(out, rgb, alpha)
-        back, _ = read_exr(out)
+    launches = {}
+    rgb, launches["config4_big"], first_s, wall = render_path(
+        "config4_big", scene, opts, device, ["bvh_tiles"], args.exr)
     rel, mean = band(rgb, ref)
-    t0 = time.perf_counter()
-    R.render(scene, opts, device=device)
-    wall = time.perf_counter() - t0
     emit(phase="render", scene="config4_big", shape=list(rgb.shape),
-         spp=opts.sampler.pixelsamples, launches=launches,
-         finite=bool(np.isfinite(rgb).all()), band_rel=rel,
+         spp=opts.sampler.pixelsamples, launches=launches["config4_big"],
+         finite=True, band_rel=rel, band_rel_limit=BAND_REL, band_mean=mean,
+         band_mean_limit=BAND_MEAN, first_render_s=first_s, wall_s=wall,
+         rays_per_s=CONFIG4_REF_RAYS / wall)
+    assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
+    if args.profile:
+        profile_render("config4_big", scene, opts, device)
+
+    # 5. Main path, row walk: the same scene with its BVH in row format
+    # only, as build_bvh leaves a tree the tile walk rejects.
+    rows_scene = dataclasses.replace(scene, accel=dataclasses.replace(
+        scene.accel, nodesT=None, nodeskip=None, nodemeta=None))
+    rgb, launches["config4_big/rows"], first_s, wall = render_path(
+        "config4_big/rows", rows_scene, opts, device, ["bvh_rows"])
+    rel, mean = band(rgb, ref)
+    emit(phase="render", scene="config4_big/rows", shape=list(rgb.shape),
+         launches=launches["config4_big/rows"], finite=True, band_rel=rel,
          band_rel_limit=BAND_REL, band_mean=mean, band_mean_limit=BAND_MEAN,
          first_render_s=first_s, wall_s=wall,
          rays_per_s=CONFIG4_REF_RAYS / wall)
-    assert launches > 0, "the render launched no traversal kernel"
-    assert rgb.shape == (512, 512, 3) and np.isfinite(rgb).all()
-    assert back.shape == rgb.shape
     assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
+    del rows_scene, scene, scene_d, bvh
+
+    # 6. The instanced walk vs its plain version on the rocks scene.
+    t0 = time.perf_counter()
+    with open(SCENE) as f:
+        text = rocks_scene_text(f.read(), N_ROCKS, ROCK_SUBDIV, ROCK_SEED)
+    rocks, dup, ropts = rocks_scenes(text)
+    inst = rocks.instances
+    emit(phase="load", scene=f"rocks({N_ROCKS})",
+         seconds=time.perf_counter() - t0,
+         triangles=rocks.triangles.count, instances=inst.count,
+         proto_triangles=inst.n_tris, entries=inst.n_entries,
+         proto_rows=int(inst.nodes.shape[0]), nn=rocks.accel.n_nodes,
+         duplicated_triangles=dup.triangles.count,
+         duplicated_nn=dup.accel.n_nodes)
+    rocks_d = to_device(rocks, device)
+    inst_d = rocks_d.instances
+    # Unsorted, as intersect_ids hands rays to the instanced walk.
+    res["bvh_instanced"] += instanced_parity(
+        "rocks/camera", inst_d, camera_rays(rocks_d, ropts, device))
+    res["bvh_instanced"] += instanced_parity(
+        "rocks/random", inst_d,
+        torch.from_numpy(random_rays(1 << 18, 3)).to(device))
+    del rocks_d, inst_d
+
+    # 7. Main path, instancing: the rocks scene rendered through the tile
+    # and instanced walks, against the same rocks duplicated.
+    ropts = ropts._replace(chunk_size=1 << 17, half_readback=True)
+    rgb, launches["rocks"], first_s, wall = render_path(
+        "rocks", rocks, ropts, device, ["bvh_tiles", "bvh_instanced"])
+    rgb_dup, launches["rocks/duplicated"], _, dup_wall = render_path(
+        "rocks/duplicated", dup, ropts, device, ["bvh_tiles"])
+    close = np.isclose(rgb, rgb_dup, atol=DUP_CLOSE, rtol=DUP_CLOSE).all(-1)
+    share = float(close.mean())
+    dmean = float(abs(rgb.mean() - rgb_dup.mean()) / rgb_dup.mean())
+    samples = ropts.xres * ropts.yres * ropts.sampler.pixelsamples
+    emit(phase="render", scene=f"rocks({N_ROCKS})", shape=list(rgb.shape),
+         spp=ropts.sampler.pixelsamples, launches=launches["rocks"],
+         finite=True, first_render_s=first_s, wall_s=wall,
+         samples_per_s=samples / wall, duplicated_wall_s=dup_wall,
+         duplicated_launches=launches["rocks/duplicated"],
+         share_close_to_duplicated=share, share_limit=DUP_SHARE,
+         close_atol_rtol=DUP_CLOSE, rel_mean_diff=dmean,
+         rel_mean_diff_limit=DUP_MEAN)
+    assert share >= DUP_SHARE and dmean <= DUP_MEAN, (share, dmean)
     if args.profile:
-        profile_render(scene, opts, device)
+        profile_render(f"rocks({N_ROCKS})", rocks, ropts, device)
 
     print(smi, flush=True)
-    cam_near = res[0]
-    emit(kernels=[dict(
-        name="bvh_tiles", route="cuda",
-        source=os.path.relpath(bvh_cuda.KERNEL_SRC, ROOT),
-        replaces="tpuprt/ops/bvh_pallas.py:860",
-        also_replaces="tpuprt/ops/bvh_pallas.py:1010",
-        launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in res),
-        ms=cam_near["ms"], plain_ms=cam_near["plain_ms"],
-        timed_on="config4_big camera rays, nearest",
-        parity=[{k: r[k] for k in ("set", "mode", "nn", "hit_mask_mismatch",
-                                   "id_mismatch", "t_rel_max")}
-                for r in res])])
+    path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
+               "bvh_instanced": "rocks"}
+    kernels = []
+    for name, rs in res.items():
+        timed_on = rs[0]   # the camera rays, nearest
+        src = bvh_cuda.KERNEL_SRC if name == "bvh_tiles" else \
+            bvh_cuda.ROWS_SRC
+        kernels.append(dict(
+            name=name, route="cuda", source=os.path.relpath(src, ROOT),
+            replaces=REPLACES[name], also_replaces=ALSO_REPLACES.get(name),
+            launches=launches[path_of[name]][name],
+            max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=timed_on["ms"], plain_ms=timed_on["plain_ms"],
+            bound_ms=timed_on["bound_ms"], bound_by=timed_on["bound_by"],
+            library_ms=None,
+            timed_on=f"{timed_on['set']}, {timed_on['mode']}",
+            launches_on=path_of[name],
+            parity=[{k: r[k] for k in ("set", "mode", "hit_mask_mismatch",
+                                       "id_mismatch", "t_rel_max", "ms",
+                                       "plain_ms", "bound_ms")}
+                    for r in rs]))
+    emit(kernels=kernels,
+         library_note="no PyTorch call computes a BVH walk")
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

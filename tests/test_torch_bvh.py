@@ -1,14 +1,18 @@
 """The port's host side and BVH traversal held against tpuprt on the
-terrain(50) scene (4802 triangles, ~790 tile-format nodes).
+terrain(50) scene (4802 triangles, ~790 nodes).
 
 - The port's parser + builder give tables EQUAL to tpuprt's, read through
-  tpuprt_torch.scene.bridge (the BVH comes from the same native builder).
-- The plain traversal (ops/bvh_cuda.traverse_tiles_ref) matches the Pallas
-  tile kernel run in interpret mode, nearest and any-hit.
-- The ray-sorting front end changes no result.
+  tpuprt_torch.scene.bridge (the BVH comes from the same native builder,
+  whose source the port carries as a copy identical but for comments).
+- The plain tile walk (ops/bvh_cuda.traverse_tiles_ref) matches the Pallas
+  tile kernel run in interpret mode, and the plain row walk
+  (traverse_rows_ref) the Pallas row kernels, whole-table and chunked,
+  nearest and any-hit.
+- The ray-sorting front end changes no result; without tiles the front
+  end walks the rows, with the tile walk's hits.
 
-The CUDA kernel itself runs only on a card: chip_smoke.py holds it against
-the plain version there.
+The CUDA kernels themselves run only on a card: chip_smoke.py holds them
+against the plain versions there.
 """
 import dataclasses
 import os
@@ -28,6 +32,7 @@ from make_scenes import config4  # noqa: E402
 
 from tpuprt.ops import bvh_pallas  # noqa: E402
 from tpuprt.scene.parser import load_scene_string as jax_load  # noqa: E402
+from tpuprt_torch.accel import bvh_build  # noqa: E402
 from tpuprt_torch.ops import bvh_cuda  # noqa: E402
 from tpuprt_torch.scene.bridge import from_numpy_tables  # noqa: E402
 from tpuprt_torch.scene.parser import load_scene_string  # noqa: E402
@@ -150,3 +155,88 @@ def test_front_end_sort_changes_nothing(scenes):
                                          any_hit=any_hit, sort=True)
         assert torch.equal(t0, t1) and torch.equal(id0, id1)
         assert torch.equal(h0, h1) and bool(h0.any())
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_row_walk_matches_pallas_interpret(scenes, chunked, any_hit):
+    """traverse_rows_ref against bvh_pallas.traverse (the whole table) and
+    traverse_chunked (64-row chunks), with test_plain_traversal's
+    tolerances."""
+    jscene, tscene = scenes
+    rays = make_rays(seed=8)
+    b = jscene.accel
+    nodes128 = jnp.pad(b.nodes, ((0, 0), (0, 128 - b.nodes.shape[1])))
+    kw = dict(nn=b.n_nodes, leaf_k=b.leaf_k, any_hit=any_hit,
+              interpret=True)
+    if chunked:
+        jt, jid = bvh_pallas.traverse_chunked(nodes128, jnp.asarray(rays),
+                                              cap=64, **kw)
+    else:
+        jt, jid = bvh_pallas.traverse(nodes128, jnp.asarray(rays), **kw)
+    a = tscene.accel
+    t, ids = bvh_cuda.traverse_rows_ref(a.nodes, torch.from_numpy(rays),
+                                        nn=a.n_nodes, any_hit=any_hit)
+    assert (np.asarray(jid) >= 0).sum() > 500
+    if any_hit:
+        np.testing.assert_array_equal(np.asarray(jid) >= 0, ids.numpy() >= 0)
+        return
+    rel = assert_hits_agree(jt, jid, t, ids, t_rtol=1e-5)
+    assert np.mean(rel <= 1e-6) >= 0.99
+
+
+def test_rows_when_tiles_rejected(scenes, monkeypatch):
+    """build_bvh keeps the rows and leaves nodesT None when build_tiles
+    rejects the tree (here: a depth limit of 1); the front end then walks
+    the rows and finds the tile walk's hits (ids equal except at ties)."""
+    _, tscene = scenes
+    monkeypatch.setattr(bvh_build, "MAX_TILE_DEPTH", 1)
+    rows_only = bvh_build.build_bvh(tscene.triangles)
+    assert rows_only.nodesT is None and rows_only.nodemeta is None
+    assert torch.equal(rows_only.nodes, tscene.accel.nodes)
+    rays = torch.from_numpy(make_rays(n=1500, seed=12))
+    o, d, mint, maxt = rays[0:3].T, rays[3:6].T, rays[6], rays[7]
+    for any_hit in (False, True):
+        t0, id0, h0 = bvh_cuda.intersect(tscene.accel, o, d, mint, maxt,
+                                         any_hit=any_hit)
+        t1, id1, h1 = bvh_cuda.intersect(rows_only, o, d, mint, maxt,
+                                         any_hit=any_hit)
+        assert torch.equal(h0, h1) and bool(h0.any())
+        if not any_hit:
+            assert_hits_agree(t0, id0, t1, id1)
+
+
+def test_render_copies_only_the_walked_format(scenes, monkeypatch):
+    """render() hands the pool the tiles without the rows when the BVH has
+    tiles, and the rows when it has none."""
+    from tpuprt_torch import render as R
+    _, tscene = scenes
+    seen = []
+    monkeypatch.setattr(R.path_wavefront, "render",
+                        lambda scene, opts, device: seen.append(scene.accel))
+    rows_only = dataclasses.replace(tscene, accel=dataclasses.replace(
+        tscene.accel, nodesT=None, nodeskip=None, nodemeta=None))
+    for scene in (tscene, rows_only):
+        R.render(scene, R.RenderOptions(), device="cpu")
+    assert seen[0].nodes is None and seen[0].nodesT is not None
+    assert torch.equal(seen[1].nodes, tscene.accel.nodes)
+    assert tscene.accel.nodes is not None
+
+
+def test_builder_source_is_tpuprts():
+    """The port builds its BVH from its own copy of tpuprt's native builder,
+    line for line in everything but comments, so the trees (and the tables
+    compared above) match; it builds its kernels from its own sources too."""
+    port = bvh_build.BVH_BUILD8_SRC
+    own = os.path.join(_ROOT, "tpuprt_torch")
+    for src in (port, bvh_cuda.KERNEL_SRC, bvh_cuda.ROWS_SRC):
+        assert os.path.commonpath([src, own]) == own and os.path.isfile(src)
+
+    def code(path):
+        with open(path) as f:
+            lines = (ln.split("//", 1)[0].rstrip() for ln in f)
+            return [ln for ln in lines if ln]
+
+    ref = code(os.path.join(_ROOT, "tpuprt", "native", "csrc",
+                            "bvh_build8.cpp"))
+    assert len(ref) > 100 and code(port) == ref

@@ -2,8 +2,9 @@
 ``tpuprt/``), for an NVIDIA Hopper GPU.
 
 Module layout and names follow ``tpuprt`` one to one, so each counterpart is
-easy to find. Plain tensor code is PyTorch; the BVH traversal kernel is
-hand-written CUDA (``ops/csrc/bvh_tiles.cu``). The package imports neither
+easy to find. Plain tensor code is PyTorch; the BVH traversal kernels are
+hand-written CUDA (``ops/csrc/bvh_tiles.cu``, ``ops/csrc/bvh_rows.cu``).
+The package imports neither
 ``jax`` nor ``tpuprt``; only the tests import both to hold the port against
 the reference.
 """

@@ -1,11 +1,13 @@
 """Host-side construction of the wide (8-ary) skip-link BVH (port of
 tpuprt/accel/bvh_build.py: build_rows, build_tiles, build_bvh).
 
-The tree comes from the SAME native binned-SAH builder as the reference,
-``tpuprt/native/csrc/bvh_build8.cpp``, compiled by path with g++ (the file
-is read, nothing of the JAX package is imported), so the port walks the same
-tree bit for bit and ids can be compared per ray. The reference's NumPy LBVH
-fallback is not carried over: without g++ the build raises.
+The tree comes from the same native binned-SAH builder as the reference:
+``csrc/bvh_build8.cpp`` here is a copy of tpuprt's
+``native/csrc/bvh_build8.cpp``, equal to it in everything but comments (a
+test holds the two equal line for line with comments stripped), compiled
+with g++ at first use, so the port walks the same tree bit for bit and ids
+can be compared per ray. The reference's NumPy LBVH fallback is not carried
+over: without g++ the build raises.
 """
 from __future__ import annotations
 
@@ -15,16 +17,17 @@ import os
 import numpy as np
 import torch
 
-from ..native import REPO_ROOT, build_shared
+from ..native import build_shared
 from ..scene.data import BvhAccel
 
 LEAF_K = 8
 BRANCH = 8
 ROW_W = 96
+NODE_COLS = 128    # rows are padded to this width for the row-walk kernels
 MAX_TILE_DEPTH = 32
 
-BVH_BUILD8_SRC = os.path.join(REPO_ROOT, "tpuprt", "native", "csrc",
-                              "bvh_build8.cpp")
+BVH_BUILD8_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "csrc", "bvh_build8.cpp")
 # The reference's flags (tpuprt/native/__init__.py): no FMA contraction, so
 # the tree does not depend on the host's vector units.
 _GXX = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
@@ -41,10 +44,12 @@ def _native_builder():
     return fn, fptr, iptr
 
 
-def build_rows(lo, hi, tri9):
-    """Binned-SAH wide BVH over triangle AABBs with packed verts tri9 (the
-    native builder's quadric count is 0: the port builds no quadrics).
-    Returns (rows f32[NN,96], prim_ids i32[NN,LEAF_K], nn)."""
+def build_rows(lo, hi, nq, tri9):
+    """Binned-SAH wide BVH over prim AABBs (nq quadrics first, then
+    triangles with packed verts tri9; the port builds no quadrics, so nq is
+    0). Shared by the scene BVH (build_bvh) and the per-prototype BLAS
+    builds (accel/instances.py). Returns (rows f32[NN,96],
+    prim_ids i32[NN,LEAF_K], nn)."""
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
     tri9 = np.ascontiguousarray(tri9, np.float32)
@@ -57,7 +62,7 @@ def build_rows(lo, hi, tri9):
     while True:
         rows = np.zeros((cap, ROW_W), np.float32)
         prim_ids = np.full((cap, LEAF_K), -1, np.int32)
-        nn = fn(p, lo.ctypes.data_as(fptr), hi.ctypes.data_as(fptr), 0,
+        nn = fn(p, lo.ctypes.data_as(fptr), hi.ctypes.data_as(fptr), nq,
                 len(tri9), tri9.ctypes.data_as(fptr), LEAF_K,
                 rows.ctypes.data_as(fptr), cap,
                 prim_ids.ctypes.data_as(iptr))
@@ -66,7 +71,16 @@ def build_rows(lo, hi, tri9):
             continue
         if nn < 0:
             raise RuntimeError(f"native BVH build failed ({nn})")
+        if nn >= (1 << 24):
+            raise ValueError(f"{nn} nodes exceeds the f32-id row format")
         return rows[:nn], prim_ids[:nn], nn
+
+
+def pad_rows(rows):
+    """f32[NN, 96] rows -> f32[NN, NODE_COLS] (zero columns appended)."""
+    out = np.zeros((len(rows), NODE_COLS), np.float32)
+    out[:, :rows.shape[1]] = rows
+    return out
 
 
 def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K):
@@ -134,7 +148,10 @@ def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K):
 
 
 def build_bvh(tri) -> BvhAccel:
-    """Tile-format BVH over a host TriangleTable (numpy-backed tensors)."""
+    """BVH over a host TriangleTable (numpy-backed tensors): the rows,
+    padded to NODE_COLS, and the tile format, or no tiles (nodesT None)
+    when build_tiles rejects the tree; the traversal then walks the rows
+    (ops/bvh_cuda.intersect)."""
     idx = tri.idx.numpy()
     verts = tri.verts.numpy()
     pts = verts[idx]                                     # [T,3,3]
@@ -142,18 +159,16 @@ def build_bvh(tri) -> BvhAccel:
     hi = pts.max(1).astype(np.float32)
     tri9 = np.concatenate([verts[idx[:, 0]], verts[idx[:, 1]],
                            verts[idx[:, 2]]], axis=1).astype(np.float32)
-    rows, prim_ids, nn = build_rows(lo, hi, tri9)
+    rows, prim_ids, nn = build_rows(lo, hi, 0, tri9)
     built = build_tiles(rows, prim_ids, nn, LEAF_K)
-    if built is None:
-        raise NotImplementedError(
-            "BVH deeper than 32 levels: the row-format walk "
-            "(bvh_pallas.traverse, kernel 3 of the port's table) is not "
-            "ported")
-    tiles, nskip, nmeta = (torch.from_numpy(a) for a in built)
+    tiles = nskip = nmeta = None
+    if built is not None:
+        tiles, nskip, nmeta = (torch.from_numpy(a) for a in built)
     pad = 1e-4 * max(np.abs(lo).max(initial=0),
                      np.abs(hi).max(initial=0)) + 1e-4
     return BvhAccel(
         bounds_lo=torch.from_numpy(lo.min(0) - pad),
         bounds_hi=torch.from_numpy(hi.max(0) + pad),
+        nodes=torch.from_numpy(pad_rows(rows)),
         tri9=torch.from_numpy(tri9), nodesT=tiles, nodeskip=nskip,
         nodemeta=nmeta, n_nodes=nn, leaf_k=LEAF_K, n_quadrics=0)

@@ -1,7 +1,10 @@
 """Scene-level intersection, hit geometry and ray differentials (port of
-tpuprt/accel/intersect.py for triangle scenes with a BVH).
+tpuprt/accel/intersect.py for triangle scenes with a BVH, and their
+ObjectInstance meshes).
 
-A primitive id is a triangle id (the port builds no quadrics).
+A primitive id is a triangle id t in [0, NT) (the port builds no
+quadrics), or NT + inst * n_tris + proto_tri for a hit on an instanced
+prototype triangle (accel/instances.py).
 """
 from __future__ import annotations
 
@@ -11,6 +14,9 @@ from ..core import vecmath as vm
 from ..scene.data import SceneData
 from ..shapes import triangle
 from . import bvh as bvh_mod
+from . import instances as inst_mod
+
+_BIG = 1e30
 
 
 def _require_bvh(scene: SceneData):
@@ -20,26 +26,59 @@ def _require_bvh(scene: SceneData):
             "ported")
 
 
+def _has_instances(scene: SceneData) -> bool:
+    return scene.instances is not None and scene.instances.count > 0
+
+
 def intersect_ids(scene: SceneData, o, d, mint, maxt):
-    """Nearest-hit (t, prim_id, hit) without differential geometry."""
+    """Nearest-hit (t, prim_id, hit) without differential geometry. The
+    instanced geometry is a second aggregate: its hits are min-combined
+    with the main one, and an instanced winner's t is recomputed through
+    the world-space triangle test."""
     _require_bvh(scene)
-    return bvh_mod.intersect(scene, o, d, mint, maxt)
+    t, pid, hit = bvh_mod.intersect(scene, o, d, mint, maxt)
+    if _has_instances(scene):
+        inst = scene.instances
+        ti, code, hi_ = inst_mod.intersect(inst, o, d, mint, maxt)
+        t_id, valid_i = inst_mod.recompute_t(inst, code, o, d, mint, hi_)
+        ti = torch.where(hi_ & valid_i, t_id, torch.where(hi_, ti, _BIG))
+        t_main = torch.where(hit, t, _BIG)
+        choose = hi_ & (ti < t_main)
+        t = torch.where(choose, ti, t_main)
+        pid = torch.where(choose, scene.triangles.count + code, pid)
+        hit = hit | hi_
+    return t, pid, hit
 
 
 def occluded(scene: SceneData, o, d, mint, maxt):
     """Any-hit shadow-ray predicate (Scene::IntersectP)."""
     _require_bvh(scene)
-    return bvh_mod.intersect(scene, o, d, mint, maxt, any_hit=True)[2]
+    hit = bvh_mod.intersect(scene, o, d, mint, maxt, any_hit=True)[2]
+    if _has_instances(scene):
+        hit = hit | inst_mod.intersect(scene.instances, o, d, mint, maxt,
+                                       any_hit=True)[2]
+    return hit
 
 
 def hit_geometry(scene: SceneData, prim_id, o, d, t):
     """DifferentialGeometry + material/area-light ids for winning prims.
     prim_id may be -1 (miss); callers mask those lanes by `hit`."""
     tri = scene.triangles
-    tid = torch.clamp(prim_id, 0, tri.count - 1).long()
+    base = tri.count
+    tid = torch.clamp(prim_id, 0, base - 1).long()
     dg = triangle.differential_geometry(tri, tid, o, d, t)
     dg["material"] = tri.material[tid]
     dg["area_light"] = tri.area_light[tid]
+    if _has_instances(scene):
+        is_inst = torch.clamp(prim_id, min=0) >= base
+        dg_i = inst_mod.hit_geometry(
+            scene.instances, torch.clamp(prim_id - base, min=0), o, d, t)
+        m = is_inst[..., None]
+        for k in ("p", "nn", "sn", "ss", "ts", "dpdu", "dpdv", "dndu",
+                  "dndv"):
+            dg[k] = torch.where(m, dg_i[k], dg[k])
+        for k in ("u", "v", "material", "area_light"):
+            dg[k] = torch.where(is_inst, dg_i[k], dg[k])
     return dg
 
 

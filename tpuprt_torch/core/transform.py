@@ -96,3 +96,40 @@ def apply_vector(m, v):
         m[..., 1, 0] * x + m[..., 1, 1] * y + m[..., 1, 2] * z,
         m[..., 2, 0] * x + m[..., 2, 1] * y + m[..., 2, 2] * z,
     ], dim=-1)
+
+
+def row_components(table, idx):
+    """table f32[Q,4,4], idx i[N] -> nested list c[i][j] of f32[N]: each
+    lane's matrix as 16 component arrays, by one gather of its flat row."""
+    flat = table.reshape(table.shape[0], 16)[idx.long()]
+    return [[flat[:, 4 * i + j] for j in range(4)] for i in range(4)]
+
+
+def rows_apply_point(c, p):
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    rx = c[0][0] * x + c[0][1] * y + c[0][2] * z + c[0][3]
+    ry = c[1][0] * x + c[1][1] * y + c[1][2] * z + c[1][3]
+    rz = c[2][0] * x + c[2][1] * y + c[2][2] * z + c[2][3]
+    w = c[3][0] * x + c[3][1] * y + c[3][2] * z + c[3][3]
+    r = torch.stack([rx, ry, rz], dim=-1)
+    w = w[..., None]
+    return r / torch.where(torch.abs(w) < 1e-30, torch.ones_like(w), w)
+
+
+def rows_apply_vector(c, v):
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.stack([
+        c[0][0] * x + c[0][1] * y + c[0][2] * z,
+        c[1][0] * x + c[1][1] * y + c[1][2] * z,
+        c[2][0] * x + c[2][1] * y + c[2][2] * z,
+    ], dim=-1)
+
+
+def rows_apply_normal(c_inv, n):
+    """Normals use the inverse transpose: pass the INVERSE's components."""
+    x, y, z = n[..., 0], n[..., 1], n[..., 2]
+    return torch.stack([
+        c_inv[0][0] * x + c_inv[1][0] * y + c_inv[2][0] * z,
+        c_inv[0][1] * x + c_inv[1][1] * y + c_inv[2][1] * z,
+        c_inv[0][2] * x + c_inv[1][2] * y + c_inv[2][2] * z,
+    ], dim=-1)

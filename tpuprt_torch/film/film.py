@@ -19,7 +19,9 @@ class Film:
     crop: tuple = (0.0, 1.0, 0.0, 1.0)
 
 
-def make_film(xres, yres, crop=(0.0, 1.0, 0.0, 1.0), device="cpu") -> Film:
+def make_film(xres, yres, crop=(0.0, 1.0, 0.0, 1.0), device="cuda") -> Film:
+    """An empty film on `device` (the card unless the caller asks for the
+    CPU; without a CUDA device, torch raises)."""
     return Film(data=torch.zeros((yres, xres, 5), dtype=torch.float32,
                                  device=device),
                 xres=xres, yres=yres, crop=tuple(crop))

@@ -1,0 +1,264 @@
+// Nearest / any-hit traversal of the row-format skip-link BVH, for one
+// scene BVH and for the instanced prototype BLAS tables.
+//
+// Replaces the TPU kernels of tpuprt/ops/bvh_pallas.py:
+//   bvh_rows_kernel      <- traverse (:457, _kernel, the whole table) and
+//                           traverse_chunked (:558, _kernel_chunked, 8192-row
+//                           chunks): the table sits in device memory at any
+//                           size, so one kernel walks [0, NN) for any NN;
+//   bvh_instanced_kernel <- traverse_instanced (:1182, _kernel_instanced).
+// Both run walk_range, the semantics of _walk_range (bvh_pallas.py:73-179).
+//
+// Contract (the reference's): rows f32[NNpad,128] = [lo xyz, hi xyz, skip,
+// nprims, leaf: 8 x (p0, p1, p2) xyz (cols 8..79), 8 prim ids (cols
+// 80..87)], ids in f32 (exact below 2^24); rays f32[8,N] = o xyz, d xyz,
+// mint, maxt (an empty window mint > maxt hits nothing). Output t f32[N],
+// id i32[N] (-1 = miss), and for the instanced walk the instance i32[N].
+//
+// Design: one thread per ray. The TPU kernels walk 1024-ray packets with
+// one scalar cursor (the packet descends when any ray hits) and sync a
+// vector result to the scalar unit each visit; here each thread keeps its
+// own cursor: node + 1 when it hits an interior box, skip otherwise, until
+// node >= stop. Kept for id parity with the reference: the slab window
+// clipped at min(maxt, best_t) * (1 + 1e-6); leaf slot j valid only for
+// j < nprims and pid >= 0 (rows of later prototypes carry -1 + t_ofs >= 0
+// in unused slots); the strict t < best_t update in slot order, so the
+// first slot wins at equal t. Built with -fmad=false so every product and
+// sum rounds as the plain torch version's separate ops do.
+//
+// Instanced walk: each thread loops over the E entries (instance,
+// prototype block) in order: a world-bbox slab test against its current
+// window, the ray into object space by the instance's w2o rows (direction
+// not renormalized, so t stays the world t), the walk of the block's node
+// range at row entry_block * cap + (node - start), and the entry's
+// instance taken when t improved. All threads read the same entries, so
+// they are staged through shared memory a tile at a time.
+//
+// What bounds it on this card. The row walk: divergent node fetches, as
+// in bvh_tiles.cu (each visit a dependent 512-byte row read; the rays of a
+// warp read different rows; the front end's ray sort keeps neighbours on
+// similar paths). The instanced walk: the O(E) entry loop. Every ray slab
+// tests all E entry boxes (1000 for the rocks scene, about 27 flops each),
+// whether or not it is near them; the walks behind the tests are short
+// (one 2048-row block per entry). Staging the entries in shared memory
+// makes the loop compute-bound instead of load-bound. A later version
+// should put a top-level BVH over the entry boxes and walk it instead.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kCols = 128;
+constexpr int kLeafK = 8;
+constexpr int kTile = 128;        // entries staged in shared memory at once
+constexpr float kBig = (float)1e30;
+constexpr float kTiny = (float)1e-12;
+constexpr float kClip = (float)(1.0 + 1e-6);
+
+__device__ __forceinline__ float safe_inv(float v) {
+  const float tiny = v < 0.0f ? -kTiny : kTiny;
+  return 1.0f / (fabsf(v) < kTiny ? tiny : v);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, mint, maxt;
+};
+
+// Slab test of box [lo, hi] against the ray's window [mint, clip].
+__device__ __forceinline__ bool slab(const Ray& r, float lox, float loy,
+                                     float loz, float hix, float hiy,
+                                     float hiz, float best_t) {
+  const float tx0 = (lox - r.ox) * r.ix, tx1 = (hix - r.ox) * r.ix;
+  const float ty0 = (loy - r.oy) * r.iy, ty1 = (hiy - r.oy) * r.iy;
+  const float tz0 = (loz - r.oz) * r.iz, tz1 = (hiz - r.oz) * r.iz;
+  const float t0 = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                         fmaxf(fminf(tz0, tz1), r.mint));
+  const float t1 =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+            fminf(fmaxf(tz0, tz1), fminf(r.maxt, best_t) * kClip));
+  return t0 <= t1;
+}
+
+// Skip-link walk of preorder node ids [start, stop), node n stored at
+// rows[(n - start) * kCols]. Updates best_t / best_id in place.
+__device__ void walk_range(const float* __restrict__ rows, int start,
+                           int stop, const Ray& r, int any_hit,
+                           float& best_t, int& best_id) {
+  int node = start;
+  while (node < stop && !(any_hit && best_id >= 0)) {
+    const float4* row =
+        reinterpret_cast<const float4*>(rows + (size_t)(node - start) * kCols);
+    const float4 a = __ldg(row), b = __ldg(row + 1);
+    const int skip = (int)b.z;
+    const int nprims = (int)b.w;
+    const bool hit = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, best_t);
+    if (hit && nprims > 0) {
+      float v[80];  // cols 8..87: 8 triangles x 9 floats, then 8 ids
+#pragma unroll
+      for (int k = 0; k < 20; ++k) {
+        const float4 c = __ldg(row + 2 + k);
+        v[4 * k] = c.x; v[4 * k + 1] = c.y;
+        v[4 * k + 2] = c.z; v[4 * k + 3] = c.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kLeafK; ++j) {
+        const float* p = v + 9 * j;
+        const int pid = (int)v[72 + j];
+        const float e1x = p[3] - p[0], e1y = p[4] - p[1], e1z = p[5] - p[2];
+        const float e2x = p[6] - p[0], e2y = p[7] - p[1], e2z = p[8] - p[2];
+        const float s1x = r.dy * e2z - r.dz * e2y;
+        const float s1y = r.dz * e2x - r.dx * e2z;
+        const float s1z = r.dx * e2y - r.dy * e2x;
+        const float div = s1x * e1x + s1y * e1y + s1z * e1z;
+        const bool ok = fabsf(div) > kTiny;
+        const float inv = 1.0f / (ok ? div : 1.0f);
+        const float sx = r.ox - p[0], sy = r.oy - p[1], sz = r.oz - p[2];
+        const float b1 = (sx * s1x + sy * s1y + sz * s1z) * inv;
+        const float s2x = sy * e1z - sz * e1y;
+        const float s2y = sz * e1x - sx * e1z;
+        const float s2z = sx * e1y - sy * e1x;
+        const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv;
+        const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv;
+        const bool valid = ok && b1 >= 0.0f && b2 >= 0.0f &&
+                           b1 + b2 <= 1.0f && t > r.mint &&
+                           t < fminf(r.maxt, best_t) && j < nprims &&
+                           pid >= 0 && !(any_hit && best_id >= 0);
+        if (valid && t < best_t) {
+          best_t = t;
+          best_id = pid;
+        }
+      }
+    }
+    node = (hit && nprims == 0) ? node + 1 : skip;
+  }
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
+                                        int n, int i) {
+  Ray r;
+  r.ox = rays[i]; r.oy = rays[n + i]; r.oz = rays[2 * n + i];
+  r.dx = rays[3 * n + i]; r.dy = rays[4 * n + i]; r.dz = rays[5 * n + i];
+  r.mint = rays[6 * n + i]; r.maxt = rays[7 * n + i];
+  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
+  return r;
+}
+
+__global__ void __launch_bounds__(128)
+bvh_rows_kernel(const float* __restrict__ rows,
+                const float* __restrict__ rays, int n, int nn, int any_hit,
+                float* __restrict__ t_out, int* __restrict__ id_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(rays, n, i);
+  float best_t = kBig;
+  int best_id = -1;
+  walk_range(rows, 0, nn, r, any_hit, best_t, best_id);
+  t_out[i] = best_t;
+  id_out[i] = best_id;
+}
+
+__global__ void __launch_bounds__(128)
+bvh_instanced_kernel(const float* __restrict__ rows,
+                     const int* __restrict__ e_block,
+                     const int* __restrict__ e_inst,
+                     const int* __restrict__ e_start,
+                     const int* __restrict__ e_stop,
+                     const float* __restrict__ e_bbox,
+                     const float* __restrict__ w2o12, int n_entries,
+                     int cap, const float* __restrict__ rays, int n,
+                     int any_hit, float* __restrict__ t_out,
+                     int* __restrict__ id_out, int* __restrict__ inst_out) {
+  __shared__ float s_bbox[kTile][6];
+  __shared__ float s_m[kTile][12];
+  __shared__ int s_int[kTile][4];  // block, inst, start, stop
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // Every thread stages entries; only live ones test them. A ray with an
+  // empty window (mint > maxt) hits nothing and tests nothing.
+  Ray w = load_ray(rays, n, min(i, n - 1));
+  const bool live = i < n && w.mint <= w.maxt;
+  float best_t = kBig;
+  int best_id = -1, best_inst = -1;
+
+  for (int e0 = 0; e0 < n_entries; e0 += kTile) {
+    const int m = min(kTile, n_entries - e0);
+    __syncthreads();
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      const int e = e0 + k;
+      const int inst = e_inst[e];
+#pragma unroll
+      for (int c = 0; c < 6; ++c) s_bbox[k][c] = e_bbox[(size_t)e * 8 + c];
+#pragma unroll
+      for (int c = 0; c < 12; ++c) s_m[k][c] = w2o12[(size_t)inst * 12 + c];
+      s_int[k][0] = e_block[e];
+      s_int[k][1] = inst;
+      s_int[k][2] = e_start[e];
+      s_int[k][3] = e_stop[e];
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int k = 0; k < m; ++k) {
+      if (any_hit && best_id >= 0) break;
+      if (!slab(w, s_bbox[k][0], s_bbox[k][1], s_bbox[k][2], s_bbox[k][3],
+                s_bbox[k][4], s_bbox[k][5], best_t))
+        continue;
+      const float* mm = s_m[k];
+      Ray o;
+      o.ox = mm[0] * w.ox + mm[1] * w.oy + mm[2] * w.oz + mm[3];
+      o.oy = mm[4] * w.ox + mm[5] * w.oy + mm[6] * w.oz + mm[7];
+      o.oz = mm[8] * w.ox + mm[9] * w.oy + mm[10] * w.oz + mm[11];
+      o.dx = mm[0] * w.dx + mm[1] * w.dy + mm[2] * w.dz;
+      o.dy = mm[4] * w.dx + mm[5] * w.dy + mm[6] * w.dz;
+      o.dz = mm[8] * w.dx + mm[9] * w.dy + mm[10] * w.dz;
+      o.ix = safe_inv(o.dx); o.iy = safe_inv(o.dy); o.iz = safe_inv(o.dz);
+      o.mint = w.mint;
+      o.maxt = w.maxt;
+      const float before = best_t;
+      const float* block =
+          rows + (size_t)s_int[k][0] * (size_t)cap * kCols;
+      walk_range(block, s_int[k][2], s_int[k][3], o, any_hit, best_t,
+                 best_id);
+      if (best_t < before) best_inst = s_int[k][1];
+    }
+  }
+  if (i < n) {
+    t_out[i] = best_t;
+    id_out[i] = best_id;
+    inst_out[i] = best_inst;
+  }
+}
+
+}  // namespace
+
+// C interface for ctypes. Each launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
+extern "C" int bvh_rows_launch(const float* rows, const float* rays, int n,
+                               int nn, int any_hit, float* t_out,
+                               int* id_out, void* stream) {
+  if (n > 0) {
+    const int block = 128;
+    const int grid = (n + block - 1) / block;
+    bvh_rows_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        rows, rays, n, nn, any_hit, t_out, id_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh_instanced_launch(const float* rows, const int* e_block,
+                                    const int* e_inst, const int* e_start,
+                                    const int* e_stop, const float* e_bbox,
+                                    const float* w2o12, int n_entries,
+                                    int cap, const float* rays, int n,
+                                    int any_hit, float* t_out, int* id_out,
+                                    int* inst_out, void* stream) {
+  if (n > 0) {
+    const int block = 128;
+    const int grid = (n + block - 1) / block;
+    bvh_instanced_kernel<<<grid, block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        rows, e_block, e_inst, e_start, e_stop, e_bbox, w2o12, n_entries,
+        cap, rays, n, any_hit, t_out, id_out, inst_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

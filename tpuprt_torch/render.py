@@ -2,9 +2,13 @@
 to the regenerating wavefront pool)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
+import torch
+
 from .integrators import path_wavefront
+from .ops import bvh_cuda
 from .samplers import samplers as smp
 from .scene.data import SceneData, to_device
 
@@ -27,8 +31,16 @@ class RenderOptions(NamedTuple):
     half_readback: bool = False
 
 
-def render(scene: SceneData, opts: RenderOptions, device="cpu"):
-    """Full-frame render on `device` ("cpu" runs the traversal's plain
-    version, "cuda" its kernel). Returns (rgb f32[yres,xres,3], alpha
-    f32[yres,xres]) as numpy arrays."""
+def render(scene: SceneData, opts: RenderOptions, device="cuda"):
+    """Full-frame render on `device`: the card by default (the traversal
+    kernels), or "cpu" on request (their plain versions). Without a CUDA
+    device a render that did not ask for the CPU raises. Returns (rgb
+    f32[yres,xres,3], alpha f32[yres,xres]) as numpy arrays."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render(): no CUDA device; pass device=\"cpu\" "
+                           "to render with the plain versions")
+    if scene.accel is not None:
+        # Copy to the card only the BVH format the front end walks.
+        scene = dataclasses.replace(scene,
+                                    accel=bvh_cuda.walked_only(scene.accel))
     return path_wavefront.render(to_device(scene, device), opts, device)

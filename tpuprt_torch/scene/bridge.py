@@ -4,9 +4,10 @@ nested dicts of numpy arrays, becomes a port SceneData.
 `tables` mirrors tpuprt's dataclasses: a dataclass becomes a dict of its
 fields (arrays as numpy, static fields as they are), a NamedTuple (texture
 node metadata) becomes a dict of its fields. Fields the port's tables do
-not have must be empty (no quadrics, volumes, instances, images or
-environment maps), and the accelerator must be a tile-format BVH; anything
-else raises NotImplementedError.
+not have must be empty (no quadrics, volumes, images or environment maps),
+and the accelerator must be a BVH; anything else raises
+NotImplementedError. The BVH's rows are padded to 128 columns, as the port
+stores them.
 """
 from __future__ import annotations
 
@@ -15,12 +16,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..accel.bvh_build import pad_rows
 from ..textures.graph import TexGraph, TexNodeMeta
 from . import data as D
 
 _NESTED = {"triangles": D.TriangleTable, "materials": D.MaterialTable,
            "textures": TexGraph, "lights": D.LightTable,
-           "camera": D.CameraData, "accel": D.BvhAccel}
+           "camera": D.CameraData, "accel": D.BvhAccel,
+           "instances": D.InstanceTable}
 
 
 def _empty(v) -> bool:
@@ -34,11 +37,11 @@ def _empty(v) -> bool:
 def _build(cls, d: dict, device, where: str):
     names = {f.name for f in dataclasses.fields(cls)}
     extra = [k for k, v in d.items() if k not in names and not _empty(v)]
-    # The BVH's row-format tables (nodes, prim_ids, selfbb) feed kernels
-    # the port replaces with the tile walk; they are dropped, not ported.
+    # The BVH's leaf prim-id table and per-node boxes feed only tpuprt's
+    # jnp and chunked walks; the port's kernels read neither.
     if cls is D.BvhAccel:
-        extra = [k for k in extra if k not in ("nodes", "prim_ids",
-                                                "selfbb")]
+        extra = [k for k in extra if k not in ("prim_ids", "selfbb")]
+        d = dict(d, nodes=pad_rows(d["nodes"]))
     if extra:
         raise NotImplementedError(f"{where}: {sorted(extra)} not ported")
     kw = {}
@@ -54,10 +57,10 @@ def _build(cls, d: dict, device, where: str):
 
 def from_numpy_tables(tables: dict, device) -> D.SceneData:
     """Port SceneData from the numpy tables of a tpuprt SceneData."""
-    if tables.get("accel") is None or \
-            tables["accel"].get("nodesT") is None:
-        raise NotImplementedError("only tile-format BVH scenes are ported")
+    if tables.get("accel") is None:
+        raise NotImplementedError("only BVH scenes are ported")
     top = {k: v for k, v in tables.items() if k not in _NESTED}
     scene = _build(D.SceneData, top, device, "SceneData")
     return dataclasses.replace(scene, **{
-        k: _build(cls, tables[k], device, k) for k, cls in _NESTED.items()})
+        k: None if tables.get(k) is None else
+        _build(cls, tables[k], device, k) for k, cls in _NESTED.items()})

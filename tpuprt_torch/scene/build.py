@@ -1,6 +1,7 @@
 """Host-side scene compilation: builder calls -> SceneData (port of
-tpuprt/scene/build.py for triangle meshes, matte materials, constant and
-checkerboard textures, distant and infinite lights and the BVH).
+tpuprt/scene/build.py for triangle meshes and their non-emissive
+ObjectInstance prototypes, matte materials, constant and checkerboard
+textures, distant and infinite lights and the BVH).
 
 All assembly is host numpy with the reference's exact operations, so the
 finished tables equal the JAX package's bit for bit; `build()` wraps them
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ..accel.bvh_build import build_bvh
+from ..accel.instances import build_instances
 from ..core import transform as tf
 from ..materials.factory import MATERIAL_KINDS, build_templates
 from ..textures.graph import TexGraph, TexNodeMeta, check_node
@@ -53,6 +55,8 @@ class SceneBuilder:
         self.tex_fparams: List[np.ndarray] = []
         self.tex_w2t: List[np.ndarray] = []
         self.lights: List[_Light] = []
+        self.protos: List[dict] = []
+        self.instances: List[Tuple[int, np.ndarray]] = []
         self.camera: Optional[D.CameraData] = None
         self.accel_kind: str = "auto"
         self._const_cache: Dict[Tuple[float, float, float], int] = {}
@@ -119,6 +123,40 @@ class SceneBuilder:
             else 1.0
         self.meshes.append(_Mesh(vw, idx, nw, uvw, sw, material, flip))
         return len(self.meshes) - 1
+
+    def add_prototype(self, indices, P, N=None, uv=None, material=0,
+                      reverse_orientation=False, o2w=None) -> int:
+        """Object-space prototype mesh for ray-transform instancing
+        (ObjectBegin geometry; o2w = the definition-time CTM, baked into
+        the prototype's object space like api.cpp's shape transform)."""
+        P = np.asarray(P, np.float32).reshape(-1, 3)
+        idx = np.asarray(indices, np.int32).reshape(-1, 3)
+        nrm = None
+        flip_swap = False
+        if o2w is not None:
+            o2w = np.asarray(o2w, np.float32)
+            P = (P @ o2w[:3, :3].T) + o2w[:3, 3]
+            flip_swap = tf.swaps_handedness(o2w)
+            if N is not None:
+                n = np.asarray(N, np.float32).reshape(-1, 3)
+                inv = np.linalg.inv(o2w)
+                nrm = n @ inv[:3, :3]
+                nrm /= np.maximum(
+                    np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-12)
+        elif N is not None:
+            nrm = np.asarray(N, np.float32).reshape(-1, 3)
+        uvw = np.asarray(uv, np.float32).reshape(-1, 2) \
+            if uv is not None else None
+        flip = -1.0 if (bool(reverse_orientation) ^ flip_swap) else 1.0
+        self.protos.append(dict(verts=P, idx=idx, uv=uvw, normals=nrm,
+                                material=material, flip=flip))
+        return len(self.protos) - 1
+
+    def add_instance(self, proto_id: int, o2w) -> int:
+        """Place an instance of a (non-emissive) prototype under transform
+        o2w (ObjectInstance; pbrt-v1 core/primitive.cpp:66-85)."""
+        self.instances.append((proto_id, np.asarray(o2w, np.float32)))
+        return len(self.instances) - 1
 
     # ---- lights ---------------------------------------------------------
     def add_distant_light(self, l2w, L=(1.0,) * 3, frm=(0, 0, 0),
@@ -223,6 +261,14 @@ class SceneBuilder:
         wlo = np.minimum.reduce([m.verts.min(0) for m in self.meshes])
         whi = np.maximum.reduce([m.verts.max(0) for m in self.meshes])
 
+        # Ray-transform instances (accel/instances.py): prototype BLAS
+        # tables + per-instance transforms; the world bound covers them.
+        inst_tab = None
+        if self.instances:
+            inst_tab = build_instances(self.protos, self.instances)
+            wlo = np.minimum(wlo, inst_tab.bounds_lo.numpy())
+            whi = np.maximum(whi, inst_tab.bounds_hi.numpy())
+
         # Accelerator: the BVH above 4096 prims (scene/build.py:759-779).
         if not (self.accel_kind == "bvh" or
                 (self.accel_kind == "auto" and nt_total > 4096)):
@@ -233,5 +279,6 @@ class SceneBuilder:
         return D.SceneData(
             triangles=tri, materials=materials, textures=textures,
             lights=lt_tab, camera=self.camera, accel=build_bvh(tri),
+            instances=inst_tab,
             world_bound_lo=_t(wlo.astype(np.float32)),
             world_bound_hi=_t(whi.astype(np.float32)))

@@ -3,7 +3,8 @@ the tables the port renders).
 
 Fields keep the reference's names and layouts; counts and other structure
 the reference marks static stay plain Python values. `-1` is the universal
-"no reference" id. A primitive id is a triangle id: the port builds no
+"no reference" id. A primitive id is a triangle id, or past the triangles
+an instanced prototype triangle's (accel/instances.py): the port builds no
 quadrics, so the reference's quadric offset NQ is 0 throughout.
 """
 from __future__ import annotations
@@ -103,20 +104,65 @@ class CameraData:
 
 @dataclass
 class BvhAccel:
-    """The 8-wide skip-link BVH in the tile format the traversal kernel
-    walks (accel/bvh_build.build_tiles): ``nodesT`` rows are param-major,
-    lanes [8k, 8k+8) = param k of the node's 8 payload slots (interior:
-    child boxes lo/hi; leaf: triangle p0/e1/e2/pid); ``nodemeta`` packs
-    depth | rank<<5 | nprims<<8."""
+    """The 8-wide skip-link BVH (accel/bvh_build.py) in two formats.
+
+    ``nodes``: the builder's preorder rows, padded to 128 columns: [lo(3),
+    hi(3), skip, nprims, leaf: 8 x 9 inlined triangle vertices (cols
+    8..79) + 8 prim ids (cols 80..87)]; the row walk (ops/csrc/bvh_rows.cu)
+    reads them. ``nodesT``: the tile format (accel/bvh_build.build_tiles),
+    rows param-major, lanes [8k, 8k+8) = param k of the node's 8 payload
+    slots (interior: child boxes lo/hi; leaf: triangle p0/e1/e2/pid), with
+    ``nodemeta`` packing depth | rank<<5 | nprims<<8; None when the tree is
+    too deep for the tile walk. The front end walks the tiles when there
+    are any, else the rows; render() copies only that format to the
+    card."""
     bounds_lo: torch.Tensor = None   # f32[3]
     bounds_hi: torch.Tensor = None   # f32[3]
+    nodes: torch.Tensor = None       # f32[NN, 128]
     tri9: torch.Tensor = None        # f32[T, 9] packed world-space vertices
-    nodesT: torch.Tensor = None      # f32[NN, 128]
+    nodesT: torch.Tensor = None      # f32[NN, 128] or None
     nodeskip: torch.Tensor = None    # i32[NN]
     nodemeta: torch.Tensor = None    # i32[NN]
     n_nodes: int = 1
     leaf_k: int = 8
     n_quadrics: int = 0
+
+
+@dataclass
+class InstanceTable:
+    """Ray-transform instancing (pbrt-v1's InstancePrimitive,
+    core/primitive.cpp:66-85): prototype triangle meshes stored once in
+    object space, each with its own BLAS (rows as in BvhAccel.nodes, leaf
+    prim ids global prototype-triangle ids), and one transform per
+    instance. Built by accel/instances.build_instances. Instanced area
+    emitters are not ported: ``tri_emissive`` is all False and
+    ``inst_area_light`` all -1."""
+    verts: torch.Tensor        # f32[V,3] object space, all prototypes
+    idx: torch.Tensor          # i32[T,3]
+    uv: torch.Tensor           # f32[V,2]
+    normals: torch.Tensor      # f32[V,3] (zeros if none)
+    has_normals: torch.Tensor  # bool[T]
+    material: torch.Tensor     # i32[T]
+    flip_normal: torch.Tensor  # f32[T]
+    nodes: torch.Tensor        # f32[blocks * block_cap, 128]
+    inst_o2w: torch.Tensor     # f32[I,4,4]
+    inst_w2o: torch.Tensor     # f32[I,4,4]
+    # Traversal entries: one per (instance, prototype node block).
+    entry_block: torch.Tensor  # i32[E] node block (rows / block_cap)
+    entry_inst: torch.Tensor   # i32[E]
+    entry_start: torch.Tensor  # i32[E] first proto-local node id of block
+    entry_stop: torch.Tensor   # i32[E] one past the block's last node id
+    entry_bbox: torch.Tensor   # f32[E,8] world bbox (lo3, hi3, pad2)
+    bounds_lo: torch.Tensor = None   # f32[3] world bounds over instances
+    bounds_hi: torch.Tensor = None
+    inst_sign: torch.Tensor = None   # f32[I]: -1 where o2w is a mirror
+    tri_emissive: torch.Tensor = None     # bool[T]
+    inst_area_light: torch.Tensor = None  # i32[I]
+    count: int = 0             # instances
+    n_tris: int = 0            # total prototype triangles
+    n_entries: int = 0
+    block_cap: int = 2048
+    leaf_k: int = 8
 
 
 @dataclass
@@ -127,6 +173,7 @@ class SceneData:
     lights: LightTable = None
     camera: CameraData = None
     accel: BvhAccel = None
+    instances: InstanceTable = None  # ray-transform instancing, or None
     world_bound_lo: torch.Tensor = None  # f32[3]
     world_bound_hi: torch.Tensor = None
 

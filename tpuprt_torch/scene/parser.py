@@ -5,8 +5,10 @@ Statements: Film, LookAt, Camera "perspective", Sampler, PixelFilter,
 SurfaceIntegrator, Accelerator, WorldBegin/End, AttributeBegin/End,
 TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
 Texture "checkerboard" and "constant", Material "matte", LightSource
-"infinite" (no map) and "distant", Shape "trianglemesh". Anything else
-raises NotImplementedError naming what is missing.
+"infinite" (no map) and "distant", Shape "trianglemesh", and
+ObjectBegin/ObjectEnd/ObjectInstance of non-emissive triangle meshes (ray-
+transform instancing). Anything else raises NotImplementedError naming
+what is missing.
 
 Bracketed number lists are converted with numpy in one call per list, not
 per token, so a multi-megabyte mesh parses in seconds. Values go through
@@ -178,6 +180,12 @@ class PbrtParser:
         self.filter_params = ParamSet({})
         self.integrator_name = "directlighting"
         self.integrator_params = ParamSet({})
+        # Object name -> its recorded triangle meshes (params, ctm,
+        # [material, material id]); (object, mesh index) -> prototype id, so
+        # the instances of one object share one prototype BLAS.
+        self.objects: Dict[str, list] = {}
+        self.current_object = None
+        self._proto_cache: Dict[Tuple[str, int], int] = {}
 
     def parse_string(self, text: str):
         ts = _Stream(tokenize(text))
@@ -246,8 +254,33 @@ class PbrtParser:
                 tex_class, ts.params())
         elif name == "LightSource":
             self._make_light(ts.next()[1], ts.params())
+        elif name == "AreaLightSource":
+            raise NotImplementedError(
+                "instanced area emitters are not ported"
+                if self.current_object is not None
+                else "area lights are not ported")
         elif name == "Shape":
-            self._make_shape(ts.next()[1], ts.params())
+            kind, params = ts.next()[1], ts.params()
+            if self.current_object is None:
+                self._make_shape(kind, params)
+            elif kind != "trianglemesh":
+                raise NotImplementedError(
+                    f'shape "{kind}" inside ObjectBegin is not ported: only '
+                    "triangle meshes instance (quadric folding needs "
+                    "quadrics, which are not ported)")
+            else:
+                self.objects[self.current_object].append(
+                    (params, self.ctm.copy(),
+                     [self.material, self.material_id]))
+        elif name == "ObjectBegin":
+            self.current_object = ts.next()[1]
+            self.objects[self.current_object] = []
+            self.ctm_stack.append(self.ctm.copy())
+        elif name == "ObjectEnd":
+            self.current_object = None
+            self.ctm = self.ctm_stack.pop()
+        elif name == "ObjectInstance":
+            self._instance(ts.next()[1])
         else:
             raise NotImplementedError(f'statement "{name}" is not ported')
 
@@ -261,17 +294,39 @@ class PbrtParser:
         return self.builder.constant_texture(
             params.find_spectrum(name, default))
 
+    def _make_material(self, material) -> int:
+        kind, params = material
+        if kind != "matte":
+            raise NotImplementedError(f'material "{kind}" is not ported')
+        if params.is_texture("bumpmap"):
+            raise NotImplementedError("bump mapping is not ported")
+        return self.builder.add_material("matte", [
+            self._child(params, "Kd", (0.5,) * 3),
+            self._child(params, "sigma", 0.0, True)])
+
     def _material_id(self) -> int:
         if self.material_id is None:
-            kind, params = self.material
-            if kind != "matte":
-                raise NotImplementedError(f'material "{kind}" is not ported')
-            if params.is_texture("bumpmap"):
-                raise NotImplementedError("bump mapping is not ported")
-            self.material_id = self.builder.add_material("matte", [
-                self._child(params, "Kd", (0.5,) * 3),
-                self._child(params, "sigma", 0.0, True)])
+            self.material_id = self._make_material(self.material)
         return self.material_id
+
+    def _instance(self, name: str):
+        """ObjectInstance: each recorded mesh of the object becomes one
+        shared prototype (made at its first instance, with the material
+        state recorded beside it) and an instance under the current CTM."""
+        for i, (params, sctm, mat) in enumerate(self.objects.get(name, [])):
+            pid = self._proto_cache.get((name, i))
+            if pid is None:
+                if mat[1] is None:
+                    mat[1] = self._make_material(mat[0])
+                uv = params.find_floats("uv")
+                if uv is None:
+                    uv = params.find_floats("st")
+                pid = self.builder.add_prototype(
+                    params.find_ints("indices"), params.find_floats("P"),
+                    N=params.find_floats("N"), uv=uv, material=mat[1],
+                    o2w=sctm)
+                self._proto_cache[(name, i)] = pid
+            self.builder.add_instance(pid, self.ctm)
 
     def _make_texture(self, tex_class, params) -> int:
         if tex_class == "constant":
