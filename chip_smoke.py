@@ -5,8 +5,8 @@
 
 Phases, one JSON line each; any failure raises and exits nonzero:
 
-1. build   -- compile ``tpuprt_torch/ops/csrc/bvh_tiles.cu`` and
-   ``bvh_rows.cu`` with nvcc, both at once.
+1. build   -- compile ``tpuprt_torch/ops/csrc/bvh_tiles.cu``,
+   ``bvh_rows.cu`` and ``mt_best.cu`` with nvcc, all three at once.
 2. parity  -- config4_big (100K triangles, NN <= 22000 rows): its
    512x512x4 camera rays and 256K random rays, nearest and any-hit, through
    the tile walk and the row walk and through their plain torch versions
@@ -26,17 +26,29 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    write_exr: the tile and instanced walks' launch counts must be > 0, the
    image finite and, against the same rocks duplicated into the main mesh
    (1.38M triangles), inside test_instances' band.
+8. parity  -- the brute-force kernel (mt_best) against its plain version:
+   config2 with Accelerator "none" (1,282 triangles), its 128x128x32
+   camera rays and 256K random rays; every 8th of config4_big's camera rays
+   (128K) against all its 99,458 triangles.
+9. render  -- config2 with Accelerator "none" through load_scene_string ->
+   render -> write_exr: mt_best's launch count must be > 0, the image
+   finite and inside test_golden's band around scenes/golden2.exr.
+10. render -- config4_big without an accelerator (every camera and shadow
+   ray against every triangle): mt_best launched, the image inside the
+   band of phase 4.
 
 Each parity line carries the kernel's and the plain version's times and
 the kernel's bound (the least time the card could take: the bytes it must
 move over the memory rate, or the ray-box, ray-triangle and transform
 operations these rays need, counted by the plain version, over the f32
 rate; for the instanced walk, only the entries a ray's final window meets,
-not the kernel's test of every entry box). Then the card's name and power
-limit, the kernel table, and as the last line ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits nonzero and prints no result.
-``--exr PATH`` also keeps config4_big's image; ``--profile`` profiles one
-more render of config4_big and of the rocks scene (phase "profile").
+not the kernel's test of every entry box; for mt_best, every triangle for
+each ray with a non-empty window). Then the card's name and power limit,
+the kernel table, and as the last line ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits nonzero and prints no result. ``--exr PATH``
+also keeps config4_big's image; ``--profile`` profiles one more render of
+config4_big, of the rocks scene and of config4_big without an accelerator
+(phase "profile").
 """
 import argparse
 import dataclasses
@@ -51,6 +63,8 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "scenes", "config4_big.pbrt")
 GOLDEN = os.path.join(ROOT, "scenes", "bench4.exr")
+CONFIG2 = os.path.join(ROOT, "scenes", "config2.pbrt")
+GOLDEN2 = os.path.join(ROOT, "scenes", "golden2.exr")
 
 # bench.py's rays/s convention for config4_big: camera + shadow rays of the
 # reference pbrt-v1 run (bench.py CONFIG4_REF_RAYS).
@@ -60,6 +74,10 @@ CONFIG4_REF_RAYS = 1.05e6 + 0.387e6
 # (blurred relative error 0.008569, relative mean difference 0.000317).
 BAND_REL = 2 * 0.008569
 BAND_MEAN = 2 * 0.000317
+# config2 against golden2.exr: the limits tests/test_golden.py holds
+# tpuprt.render to (test_golden2_grid_mesh_arealight).
+BAND2_REL, BAND2_MEAN = 0.04, 0.015
+MT_CONFIG4_RAYS = 1 << 17  # config4_big camera rays held against mt_best
 T_RTOL = 1e-6             # kernel vs plain: t agreement (relative)
 SCALE_TERRAIN_N = 708     # bench.py's 1M-triangle terrain grid
 N_ROCKS, ROCK_SUBDIV, ROCK_SEED = 1000, 3, 1
@@ -72,18 +90,20 @@ DUP_CLOSE, DUP_SHARE, DUP_MEAN = 2e-3, 0.995, 1e-3
 # 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s. Operations per test,
 # as the kernels compute them: a slab test (of a node's or an instance
 # entry's box) is 6 sub + 6 mul, 12 min/max, the window clip (min, mul)
-# and a compare; a Moller-Trumbore test 56 (the tile walk's edges come
-# precomputed) or 62 (the row walk forms them); a ray moved into an
+# and a compare; a Moller-Trumbore test 56 (the tile walk's and mt_best's
+# edges come precomputed) or 62 (the row walk forms them); a ray moved into an
 # instance's object space 45 (two 3x4 transforms and three safe
 # reciprocals). Bytes of a row-format node: the 88 of its 128 columns the
 # walks read (box, skip, nprims, 8 triangles, 8 ids).
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 SLAB_OPS, XFORM_OPS = 27, 45
 ROW_BYTES = 88 * 4
-TRI_OPS = {"bvh_tiles": 56, "bvh_rows": 62, "bvh_instanced": 62}
+TRI_OPS = {"bvh_tiles": 56, "bvh_rows": 62, "bvh_instanced": 62,
+           "mt_best": 56}
 REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:860",
             "bvh_rows": "tpuprt/ops/bvh_pallas.py:457",
-            "bvh_instanced": "tpuprt/ops/bvh_pallas.py:1182"}
+            "bvh_instanced": "tpuprt/ops/bvh_pallas.py:1182",
+            "mt_best": "tpuprt/ops/mt_pallas.py:111"}
 ALSO_REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:1010",
                  "bvh_rows": "tpuprt/ops/bvh_pallas.py:558"}
 
@@ -232,20 +252,21 @@ def compare(ref, got):
 def bound(name, nbytes, counts):
     """(ms, "bytes" | "operations", ops): the larger of the bytes over the
     memory rate and the counted tests' operations over the f32 rate."""
-    ops = SLAB_OPS * (counts["slab"] + counts.get("entry", 0)) + \
+    ops = SLAB_OPS * (counts.get("slab", 0) + counts.get("entry", 0)) + \
         TRI_OPS[name] * counts["tri"] + XFORM_OPS * counts.get("xform", 0)
     t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", ops)
 
 
-def parity(label, name, kernel, ref, table_bytes, rays, reps=5):
-    """Kernel vs plain version on one packed ray set, both modes: nearest
-    must agree per ray (masks, ids outside ties, t), any-hit in its masks.
-    `kernel(rays, any_hit)` and `ref(rays, any_hit, with_counts)` return
-    (t, id[, inst][, counts])."""
+def parity(label, name, kernel, ref, table_bytes, rays, reps=5,
+           modes=(False, True)):
+    """Kernel vs plain version on one packed ray set, in each mode (any_hit
+    False, True): nearest must agree per ray (masks, ids outside ties, t),
+    any-hit in its masks. `kernel(rays, any_hit)` and `ref(rays, any_hit,
+    with_counts)` return (t, id[, inst][, counts])."""
     results = []
-    for any_hit in (False, True):
+    for any_hit in modes:
         ms, got = timed(lambda: kernel(rays, any_hit), reps)
         plain_ms, _ = timed(lambda: ref(rays, any_hit, False), reps)
         *want, counts = ref(rays, any_hit, True)
@@ -309,6 +330,24 @@ def instanced_parity(label, inst, rays, reps=5):
         lambda r, a, c: bvh_cuda.traverse_instanced_ref(
             *args, r, cap=inst.block_cap, any_hit=a, with_counts=c),
         table_bytes, rays, reps)
+
+
+def mt_parity(label, tris, rays, reps=5):
+    """mt_best vs mt_best_ref (nearest hits only: the kernel has no any-hit
+    mode). Bytes: the 9-float triangles once."""
+    from tpuprt_torch.ops import mt_cuda
+    return parity(
+        label, "mt_best", lambda r, a: mt_cuda.mt_best(r, tris),
+        lambda r, a, c: mt_cuda.mt_best_ref(r, tris, with_counts=c),
+        tris.numel() * 4, rays, reps, modes=(False,))
+
+
+def config2_none_text():
+    """scenes/config2.pbrt with Accelerator "none" in place of "grid"."""
+    with open(CONFIG2) as f:
+        text = f.read()
+    assert 'Accelerator "grid"' in text
+    return text.replace('Accelerator "grid"', 'Accelerator "none"')
 
 
 def scale_scene(device):
@@ -379,13 +418,15 @@ def render_path(label, scene, opts, device, need, exr=None):
     import numpy as np
     from tpuprt_torch import render as R
     from tpuprt_torch.io.exr import read_exr, write_exr
-    from tpuprt_torch.ops import bvh_cuda
-    for k in bvh_cuda.launches:
-        bvh_cuda.launches[k] = 0
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    counters = (bvh_cuda.launches, mt_cuda.launches)
+    for c in counters:
+        for k in c:
+            c[k] = 0
     t0 = time.perf_counter()
     rgb, alpha = R.render(scene, opts, device=device)
     first_s = time.perf_counter() - t0
-    launches = dict(bvh_cuda.launches)
+    launches = {k: v for c in counters for k, v in c.items()}
     with tempfile.TemporaryDirectory() as tmp:
         out = exr or os.path.join(tmp, opts.filename)
         write_exr(out, rgb, alpha)
@@ -448,9 +489,9 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     import numpy as np
     from tpuprt_torch.io.exr import read_exr
-    from tpuprt_torch.ops import bvh_cuda
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
     from tpuprt_torch.scene.data import to_device
-    from tpuprt_torch.scene.parser import load_scene
+    from tpuprt_torch.scene.parser import load_scene, load_scene_string
 
     device = "cuda"
     smi = subprocess.run(
@@ -458,12 +499,12 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
 
-    # 1. Build both kernel sources from the checkout, one nvcc each, at once.
+    # 1. Build the kernel sources from the checkout, one nvcc each, at once.
     def build(src):
         t0 = time.perf_counter()
         bvh_cuda.build(src)
         return time.perf_counter() - t0
-    srcs = (bvh_cuda.KERNEL_SRC, bvh_cuda.ROWS_SRC)
+    srcs = (bvh_cuda.KERNEL_SRC, bvh_cuda.ROWS_SRC, mt_cuda.MT_SRC)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(srcs)) as ex:
         secs = list(ex.map(build, srcs))
@@ -532,7 +573,12 @@ def main(argv=None):
          first_render_s=first_s, wall_s=wall,
          rays_per_s=CONFIG4_REF_RAYS / wall)
     assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
-    del rows_scene, scene, scene_d, bvh
+    # Every 8th of config4_big's camera rays (2^17, spread over the whole
+    # film: the first 2^17 are the top rows, all sky), for phase 8.
+    cam = camera_rays(scene_d, opts, device)
+    c4_rays = cam[:, ::cam.shape[1] // MT_CONFIG4_RAYS].contiguous()
+    del cam
+    del rows_scene, scene_d, bvh
 
     # 6. The instanced walk vs its plain version on the rocks scene.
     t0 = time.perf_counter()
@@ -579,15 +625,69 @@ def main(argv=None):
     assert share >= DUP_SHARE and dmean <= DUP_MEAN, (share, dmean)
     if args.profile:
         profile_render(f"rocks({N_ROCKS})", rocks, ropts, device)
+    del rocks, dup
+
+    # 8. mt_best vs its plain version: config2/none and config4_big.
+    t0 = time.perf_counter()
+    c2, c2_opts = load_scene_string(config2_none_text())
+    emit(phase="load", scene="config2/none", seconds=time.perf_counter() - t0,
+         triangles=c2.triangles.count, quadrics=c2.quadrics.count,
+         accel=None)
+    assert c2.accel is None and c2.triangles.count == 1282
+    c2_d = to_device(c2, device)
+    tris = mt_cuda.pack_table(c2_d.triangles)
+    res["mt_best"] = mt_parity("config2/camera", tris,
+                               camera_rays(c2_d, c2_opts, device))
+    res["mt_best"] += mt_parity(
+        "config2/random", tris,
+        torch.from_numpy(random_rays(1 << 18, 4)).to(device))
+    res["mt_best"] += mt_parity(
+        "config4_big/camera",
+        mt_cuda.pack_table(to_device(scene.triangles, device)), c4_rays,
+        reps=3)
+    del c2_d, tris, c4_rays
+
+    # 9. Main path, no accelerator: config2/none at the file's settings
+    # (128x128 x 32 spp) with bench.py's pool.
+    ref2, _ = read_exr(GOLDEN2)
+    c2_opts = c2_opts._replace(chunk_size=1 << 17, half_readback=True)
+    rgb, launches["config2/none"], first_s, wall = render_path(
+        "config2/none", c2, c2_opts, device, ["mt_best"])
+    rel, mean = band(rgb, ref2)
+    emit(phase="render", scene="config2/none", shape=list(rgb.shape),
+         spp=c2_opts.sampler.pixelsamples, launches=launches["config2/none"],
+         finite=True, band_rel=rel, band_rel_limit=BAND2_REL, band_mean=mean,
+         band_mean_limit=BAND2_MEAN, first_render_s=first_s, wall_s=wall,
+         samples_per_s=c2_opts.xres * c2_opts.yres *
+         c2_opts.sampler.pixelsamples / wall)
+    assert rel < BAND2_REL and mean < BAND2_MEAN, (rel, mean)
+
+    # 10. Main path, no accelerator, full width: config4_big with every
+    # camera and shadow ray against all 99,458 triangles.
+    none_scene = dataclasses.replace(scene, accel=None)
+    rgb, launches["config4_big/none"], first_s, wall = render_path(
+        "config4_big/none", none_scene, opts, device, ["mt_best"])
+    rel, mean = band(rgb, ref)
+    emit(phase="render", scene="config4_big/none", shape=list(rgb.shape),
+         spp=opts.sampler.pixelsamples, launches=launches["config4_big/none"],
+         finite=True, band_rel=rel, band_rel_limit=BAND_REL, band_mean=mean,
+         band_mean_limit=BAND_MEAN, first_render_s=first_s, wall_s=wall,
+         rays_per_s=CONFIG4_REF_RAYS / wall)
+    assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
+    if args.profile:
+        profile_render("config4_big/none", none_scene, opts, device)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
-               "bvh_instanced": "rocks"}
+               "bvh_instanced": "rocks", "mt_best": "config4_big/none"}
+    source = {"bvh_tiles": bvh_cuda.KERNEL_SRC, "bvh_rows": bvh_cuda.ROWS_SRC,
+              "bvh_instanced": bvh_cuda.ROWS_SRC, "mt_best": mt_cuda.MT_SRC}
     kernels = []
     for name, rs in res.items():
-        timed_on = rs[0]   # the camera rays, nearest
-        src = bvh_cuda.KERNEL_SRC if name == "bvh_tiles" else \
-            bvh_cuda.ROWS_SRC
+        # The camera rays, nearest; mt_best on config4_big's, the shape of
+        # its main path at full width.
+        timed_on = rs[-1] if name == "mt_best" else rs[0]
+        src = source[name]
         kernels.append(dict(
             name=name, route="cuda", source=os.path.relpath(src, ROOT),
             replaces=REPLACES[name], also_replaces=ALSO_REPLACES.get(name),
@@ -603,7 +703,8 @@ def main(argv=None):
                                        "plain_ms", "bound_ms")}
                     for r in rs]))
     emit(kernels=kernels,
-         library_note="no PyTorch call computes a BVH walk")
+         library_note="no PyTorch call computes a BVH walk or a nearest "
+         "ray-triangle hit")
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

@@ -104,7 +104,8 @@ def test_port_imports_no_jax():
     code = ("import sys, tpuprt_torch, tpuprt_torch.render, "
             "tpuprt_torch.scene.parser, tpuprt_torch.scene.bridge, "
             "tpuprt_torch.io.exr, tpuprt_torch.accel.instances, "
-            "tpuprt_torch.accel.intersect, tpuprt_torch.ops.bvh_cuda; "
+            "tpuprt_torch.accel.intersect, tpuprt_torch.ops.bvh_cuda, "
+            "tpuprt_torch.ops.mt_cuda, tpuprt_torch.shapes.quadrics; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

@@ -46,8 +46,8 @@ def _native_builder():
 
 def build_rows(lo, hi, nq, tri9):
     """Binned-SAH wide BVH over prim AABBs (nq quadrics first, then
-    triangles with packed verts tri9; the port builds no quadrics, so nq is
-    0). Shared by the scene BVH (build_bvh) and the per-prototype BLAS
+    triangles with packed verts tri9; the port's BVHs hold no quadrics, so
+    nq is 0). Shared by the scene BVH (build_bvh) and the per-prototype BLAS
     builds (accel/instances.py). Returns (rows f32[NN,96],
     prim_ids i32[NN,LEAF_K], nn)."""
     lo = np.ascontiguousarray(lo, np.float32)

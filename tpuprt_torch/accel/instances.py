@@ -8,8 +8,8 @@ Traversal (ops/bvh_cuda.traverse_instanced) moves each ray into the
 instance's object space with its direction unnormalized, so t stays the
 world t and instanced hits compare directly with the main aggregate's.
 
-Global prim id of an instanced hit: NQ + NT + inst * n_tris + proto_tri
-(NQ is 0 in the port), so integrator signatures are unchanged.
+Global prim id of an instanced hit: NQ + NT + inst * n_tris + proto_tri,
+so integrator signatures are unchanged.
 """
 from __future__ import annotations
 

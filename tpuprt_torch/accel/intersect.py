@@ -1,33 +1,73 @@
 """Scene-level intersection, hit geometry and ray differentials (port of
-tpuprt/accel/intersect.py for triangle scenes with a BVH, and their
-ObjectInstance meshes).
+tpuprt/accel/intersect.py: the BVH and the brute-force aggregate over
+quadrics and triangles, plus ObjectInstance meshes).
 
-A primitive id is a triangle id t in [0, NT) (the port builds no
-quadrics), or NT + inst * n_tris + proto_tri for a hit on an instanced
-prototype triangle (accel/instances.py).
+A primitive id is, as in the reference, a quadric id q in [0, NQ), a
+triangle id t as NQ + t, or NQ + NT + inst * n_tris + proto_tri for a hit
+on an instanced prototype triangle (accel/instances.py).
+
+Without an accelerator (scene.accel None) every ray is tested against
+every primitive: the quadrics by plain torch all pairs, the triangles by
+the dense kernel (ops/mt_cuda.py), whatever their count. tpuprt's
+BRUTE_UNROLL_MAX, PALLAS_MIN_TRIS and force_pallas choose among TPU
+formulations with the same results; the port has one.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import transform as tf
 from ..core import vecmath as vm
-from ..scene.data import SceneData
-from ..shapes import triangle
+from ..ops import mt_cuda
+from ..scene.data import (QUADRIC_CONE, QUADRIC_CYLINDER, QUADRIC_DISK,
+                          QUADRIC_HYPERBOLOID, QUADRIC_PARABOLOID, SceneData)
+from ..shapes import quadrics, triangle
 from . import bvh as bvh_mod
 from . import instances as inst_mod
 
 _BIG = 1e30
 
 
-def _require_bvh(scene: SceneData):
-    if scene.accel is None:
-        raise NotImplementedError(
-            "scenes without a BVH (brute force, grid, kd-tree) are not "
-            "ported")
-
-
 def _has_instances(scene: SceneData) -> bool:
     return scene.instances is not None and scene.instances.count > 0
+
+
+def _nq(scene: SceneData) -> int:
+    return scene.quadrics.count if scene.quadrics is not None else 0
+
+
+def _brute_force(scene: SceneData, o, d, mint, maxt):
+    """Nearest hit over all primitives (tpuprt/accel/intersect.py:89-128,
+    its non-unrolled form): the quadrics first, then the triangles replace
+    them only where strictly nearer, so a quadric wins a tie; among
+    triangles the lowest index wins. Returns (t, prim_id, hit)."""
+    n = o.shape[0]
+    nq, nt = _nq(scene), scene.triangles.count
+    best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
+    best_id = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    if nq:
+        tq, _ = quadrics.intersect(scene.quadrics, o, d, mint, maxt)
+        qt, qi = tq.min(dim=1)
+        upd = qt < best_t
+        best_t = torch.where(upd, qt, best_t)
+        best_id = torch.where(upd, qi.to(torch.int32), best_id)
+    if nt:
+        tris = scene.tris_packed
+        if tris is None:
+            tris = mt_cuda.pack_table(scene.triangles)
+        t_tri, ti, _ = mt_cuda.intersect_packed(tris, o, d, mint, maxt)
+        upd = t_tri < best_t
+        best_t = torch.where(upd, t_tri, best_t)
+        best_id = torch.where(upd, ti + nq, best_id)
+    return best_t, best_id, best_id >= 0
+
+
+def _main_intersect(scene: SceneData, o, d, mint, maxt, any_hit=False):
+    if scene.accel is None:
+        # Brute force resolves every ray to its nearest hit; an any-hit
+        # caller reads the mask (tpuprt/accel/intersect.py:187-188).
+        return _brute_force(scene, o, d, mint, maxt)
+    return bvh_mod.intersect(scene, o, d, mint, maxt, any_hit=any_hit)
 
 
 def intersect_ids(scene: SceneData, o, d, mint, maxt):
@@ -35,8 +75,7 @@ def intersect_ids(scene: SceneData, o, d, mint, maxt):
     instanced geometry is a second aggregate: its hits are min-combined
     with the main one, and an instanced winner's t is recomputed through
     the world-space triangle test."""
-    _require_bvh(scene)
-    t, pid, hit = bvh_mod.intersect(scene, o, d, mint, maxt)
+    t, pid, hit = _main_intersect(scene, o, d, mint, maxt)
     if _has_instances(scene):
         inst = scene.instances
         ti, code, hi_ = inst_mod.intersect(inst, o, d, mint, maxt)
@@ -45,15 +84,15 @@ def intersect_ids(scene: SceneData, o, d, mint, maxt):
         t_main = torch.where(hit, t, _BIG)
         choose = hi_ & (ti < t_main)
         t = torch.where(choose, ti, t_main)
-        pid = torch.where(choose, scene.triangles.count + code, pid)
+        base = _nq(scene) + scene.triangles.count
+        pid = torch.where(choose, base + code, pid)
         hit = hit | hi_
     return t, pid, hit
 
 
 def occluded(scene: SceneData, o, d, mint, maxt):
     """Any-hit shadow-ray predicate (Scene::IntersectP)."""
-    _require_bvh(scene)
-    hit = bvh_mod.intersect(scene, o, d, mint, maxt, any_hit=True)[2]
+    hit = _main_intersect(scene, o, d, mint, maxt, any_hit=True)[2]
     if _has_instances(scene):
         hit = hit | inst_mod.intersect(scene.instances, o, d, mint, maxt,
                                        any_hit=True)[2]
@@ -61,16 +100,36 @@ def occluded(scene: SceneData, o, d, mint, maxt):
 
 
 def hit_geometry(scene: SceneData, prim_id, o, d, t):
-    """DifferentialGeometry + material/area-light ids for winning prims.
-    prim_id may be -1 (miss); callers mask those lanes by `hit`."""
-    tri = scene.triangles
-    base = tri.count
-    tid = torch.clamp(prim_id, 0, base - 1).long()
-    dg = triangle.differential_geometry(tri, tid, o, d, t)
-    dg["material"] = tri.material[tid]
-    dg["area_light"] = tri.area_light[tid]
+    """DifferentialGeometry + material/area-light ids for winning prims
+    (tpuprt/accel/intersect.py:197-265). prim_id may be -1 (miss);
+    callers mask those lanes by `hit`."""
+    nq, nt = _nq(scene), scene.triangles.count
+    base = nq + nt
+    pid = torch.clamp(prim_id, min=0)
+    if nt:
+        tid = torch.clamp(pid - nq, 0, nt - 1).long()
+        dg = triangle.differential_geometry(scene.triangles, tid, o, d, t)
+        dg["material"] = scene.triangles.material[tid]
+        dg["area_light"] = scene.triangles.area_light[tid]
+    if nq:
+        q = scene.quadrics
+        qid = torch.clamp(pid, 0, nq - 1).long()
+        dgq = quadrics.differential_geometry(q, qid, o, d, t)
+        # A quadric's shading frame is its geometric one.
+        dgq["sn"] = dgq["nn"]
+        dgq["ss"] = vm.normalize(dgq["dpdu"])
+        dgq["ts"] = vm.normalize(vm.cross(dgq["nn"], dgq["ss"]))
+        dgq["material"] = q.material[qid]
+        dgq["area_light"] = q.area_light[qid]
+        if nt:
+            is_tri = pid >= nq
+            dg = {k: torch.where(is_tri if v.dim() == 1 else
+                                 is_tri[..., None], v, dgq[k])
+                  for k, v in dg.items()}
+        else:
+            dg = dgq
     if _has_instances(scene):
-        is_inst = torch.clamp(prim_id, min=0) >= base
+        is_inst = pid >= base
         dg_i = inst_mod.hit_geometry(
             scene.instances, torch.clamp(prim_id - base, min=0), o, d, t)
         m = is_inst[..., None]
@@ -80,6 +139,78 @@ def hit_geometry(scene: SceneData, prim_id, o, d, t):
         for k in ("u", "v", "material", "area_light"):
             dg[k] = torch.where(is_inst, dg_i[k], dg[k])
     return dg
+
+
+def hit_geometry_light(scene: SceneData, prim_id, o, d, t):
+    """The hit record a light-identification ray needs: p, nn (geometric,
+    flip applied), area_light, material (tpuprt/accel/intersect.py:331-428).
+    A quadric's normal comes from its implicit surface's gradient at the
+    object-space hit, with no trigonometry."""
+    nq, nt = _nq(scene), scene.triangles.count
+    base = nq + nt
+    pid = torch.clamp(prim_id, min=0)
+    p = o + t[..., None] * d
+    if nt:
+        tri = scene.triangles
+        tid = torch.clamp(pid - nq, 0, nt - 1).long()
+        p0, p1, p2 = triangle.gather_verts(tri, tid)
+        nn = vm.normalize(vm.cross(p1 - p0, p2 - p0)) * \
+            tri.flip_normal[tid][..., None]
+        area_light = tri.area_light[tid]
+        material = tri.material[tid]
+    if nq:
+        q = scene.quadrics
+        qid = torch.clamp(pid, 0, nq - 1).long()
+        w2o_c = tf.row_components(q.w2o, qid)
+        kind = q.kind[qid]
+        prm = q.params[qid]
+        ph = tf.rows_apply_point(w2o_c, p)
+        x, y, z = ph[..., 0], ph[..., 1], ph[..., 2]
+        zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+        kp = q.kinds_present or quadrics.ALL_QUADRIC_KINDS
+        grad = torch.stack([x, y, z], -1)                 # sphere
+        if QUADRIC_CYLINDER in kp:
+            grad = torch.where((kind == QUADRIC_CYLINDER)[..., None],
+                               torch.stack([x, y, zeros], -1), grad)
+        if QUADRIC_DISK in kp:
+            grad = torch.where((kind == QUADRIC_DISK)[..., None],
+                               torch.stack([zeros, zeros, ones], -1), grad)
+        if QUADRIC_CONE in kp:
+            r_co, h_co = prm[..., 0], prm[..., 1]
+            k_co = (r_co / torch.where(h_co == 0, 1.0, h_co)) ** 2
+            grad = torch.where((kind == QUADRIC_CONE)[..., None],
+                               torch.stack([x, y, -k_co * (z - h_co)], -1),
+                               grad)
+        if QUADRIC_PARABOLOID in kp:
+            r_pa, zmax_pa = prm[..., 0], prm[..., 2]
+            k_pa = zmax_pa / torch.where(r_pa == 0, 1.0, r_pa * r_pa)
+            grad = torch.where((kind == QUADRIC_PARABOLOID)[..., None],
+                               torch.stack([2 * k_pa * x, 2 * k_pa * y,
+                                            -ones], -1), grad)
+        if QUADRIC_HYPERBOLOID in kp:
+            a_h, c_h = prm[..., 0], prm[..., 1]
+            grad = torch.where((kind == QUADRIC_HYPERBOLOID)[..., None],
+                               torch.stack([a_h * x, a_h * y, -c_h * z], -1),
+                               grad)
+        nnq = vm.normalize(tf.rows_apply_normal(w2o_c, grad)) * \
+            q.flip_normal[qid][..., None]
+        if nt:
+            is_tri = pid >= nq
+            nn = torch.where(is_tri[..., None], nn, nnq)
+            area_light = torch.where(is_tri, area_light, q.area_light[qid])
+            material = torch.where(is_tri, material, q.material[qid])
+        else:
+            nn, area_light, material = nnq, q.area_light[qid], \
+                q.material[qid]
+    if _has_instances(scene):
+        # Instanced hits carry no area light.
+        is_inst = pid >= base
+        dg_i = inst_mod.hit_geometry(
+            scene.instances, torch.clamp(prim_id - base, min=0), o, d, t)
+        nn = torch.where(is_inst[..., None], dg_i["nn"], nn)
+        area_light = torch.where(is_inst, dg_i["area_light"], area_light)
+        material = torch.where(is_inst, dg_i["material"], material)
+    return dict(p=p, nn=nn, area_light=area_light, material=material)
 
 
 def compute_differentials(dg, rx_o, rx_d, ry_o, ry_d, active):

@@ -40,6 +40,29 @@ def cosine_sample_hemisphere(u1, u2):
     return torch.stack([x, y, z], dim=-1)
 
 
+def uniform_sample_sphere(u1, u2):
+    """core/mc.cpp:68-77."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=1e-12))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_sample_cone_frame(u1, u2, costhetamax, x, y, z):
+    """core/mc.cpp:150-158 -- a direction uniform in the cone of half-angle
+    acos(costhetamax) about z, in the frame (x, y, z)."""
+    costheta = (1.0 - u1) * 1.0 + u1 * costhetamax      # Lerp(u1, 1, max)
+    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=1e-12))
+    phi = u2 * 2.0 * math.pi
+    return (torch.cos(phi) * sintheta)[..., None] * x + \
+        (torch.sin(phi) * sintheta)[..., None] * y + costheta[..., None] * z
+
+
+def uniform_cone_pdf(costhetamax):
+    """core/mc.cpp:159-161."""
+    return 1.0 / (2.0 * math.pi * torch.clamp(1.0 - costhetamax, min=1e-8))
+
+
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     """core/mc.h:55-59 — beta=2."""
     f = nf * f_pdf

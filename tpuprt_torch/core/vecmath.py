@@ -41,6 +41,22 @@ def normalize(v, eps=1e-20):
     return v * torch.rsqrt(torch.clamp(n2, min=eps))
 
 
+def quadratic(a, b, c):
+    """Solve a t^2 + b t + c = 0 branchlessly: (has_solution, t0 <= t1),
+    the numerically stable form of Quadratic (core/pbrt.h:622-644)."""
+    disc = b * b - 4.0 * a * c
+    ok = disc > 0.0
+    root = torch.sqrt(torch.where(ok, disc, 1.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+
+    def safe(n, d):
+        return n / torch.where(torch.abs(d) < 1e-30, 1e-30, d)
+
+    t0 = safe(q, a)
+    t1 = safe(c, q)
+    return ok, torch.minimum(t0, t1), torch.maximum(t0, t1)
+
+
 def coordinate_system(v1):
     """Orthonormal frame (v1, v2, v3) from a unit vector, branchless
     (reference core/geometry.h:32-49)."""

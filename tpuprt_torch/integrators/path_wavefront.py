@@ -23,7 +23,7 @@ from ..core import rng, vecmath as vm
 from ..film import film as film_mod
 from ..lights import lights as lt
 from ..samplers import samplers as smp
-from ..scene.data import SceneData
+from ..scene.data import LIGHT_AREA, SceneData
 from . import common
 
 _EPS = vm.RAY_EPSILON
@@ -97,6 +97,10 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     dg = isect.hit_geometry(scene, pid, ro, rd, t)
     dg = isect.compute_differentials(dg, st["rx_o"], st["rx_d"],
                                      st["ry_o"], st["ry_d"], first & alive)
+    if LIGHT_AREA in scene.lights.kinds_present:
+        # Emitted radiance at every live hit (path_wavefront.py:286-289).
+        Le = lt.area_emission(scene, dg["area_light"], dg["nn"], -rd)
+        L = L + torch.where(alive[..., None], throughput * Le, 0.0)
     bsdf = common.make_bsdf_at(scene, dg)
     p, ns = dg["p"], bsdf.nn
     wo = -rd
@@ -190,6 +194,7 @@ def render(scene: SceneData, opts, device):
         raise NotImplementedError(
             f'integrator "{opts.integrator}" is not ported (directlighting, '
             'strategy "all")')
+    lt.check(scene.lights)    # once per render: it reads a table
     film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)
     spp = smp.samples_per_pixel(opts.sampler)

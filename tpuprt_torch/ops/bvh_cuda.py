@@ -6,10 +6,11 @@ traverse_instanced and intersect).
 Two sources, three kernels: ``csrc/bvh_tiles.cu`` walks the tile-format
 BVH (`traverse_tiles`); ``csrc/bvh_rows.cu`` walks the row format, a whole
 table (`traverse_rows`) or an instanced aggregate's prototype blocks
-(`traverse_instanced`). Each wrapper launches its kernel for CUDA tensors
-and runs its plain version (``*_ref``) only for CPU tensors: there is no
-fallback from one to the other. The kernels are compiled with nvcc at
-first use into ``tpuprt_torch/_build/`` and bound through ctypes.
+(`traverse_instanced`); the brute force's kernel is in ops/mt_cuda.py.
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version (``*_ref``) only for CPU tensors: there is no fallback from one to
+the other. The kernels are compiled with nvcc at first use into
+``tpuprt_torch/_build/`` and bound through ctypes.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ from typing import NamedTuple
 import torch
 
 from .integrators import path_wavefront
-from .ops import bvh_cuda
+from .ops import bvh_cuda, mt_cuda
 from .samplers import samplers as smp
 from .scene.data import SceneData, to_device
 
@@ -43,4 +43,8 @@ def render(scene: SceneData, opts: RenderOptions, device="cuda"):
         # Copy to the card only the BVH format the front end walks.
         scene = dataclasses.replace(scene,
                                     accel=bvh_cuda.walked_only(scene.accel))
+    elif scene.triangles.count:
+        # Brute force: the dense kernel's triangles, packed once.
+        scene = dataclasses.replace(
+            scene, tris_packed=mt_cuda.pack_table(scene.triangles))
     return path_wavefront.render(to_device(scene, device), opts, device)

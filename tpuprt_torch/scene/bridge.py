@@ -4,8 +4,8 @@ nested dicts of numpy arrays, becomes a port SceneData.
 `tables` mirrors tpuprt's dataclasses: a dataclass becomes a dict of its
 fields (arrays as numpy, static fields as they are), a NamedTuple (texture
 node metadata) becomes a dict of its fields. Fields the port's tables do
-not have must be empty (no quadrics, volumes, images or environment maps),
-and the accelerator must be a BVH; anything else raises
+not have must be empty (no volumes, images or environment maps), and the
+accelerator must be a BVH or none (brute force); anything else raises
 NotImplementedError. The BVH's rows are padded to 128 columns, as the port
 stores them.
 """
@@ -23,7 +23,12 @@ from . import data as D
 _NESTED = {"triangles": D.TriangleTable, "materials": D.MaterialTable,
            "textures": TexGraph, "lights": D.LightTable,
            "camera": D.CameraData, "accel": D.BvhAccel,
-           "instances": D.InstanceTable}
+           "instances": D.InstanceTable, "quadrics": D.QuadricTable}
+# Fields that feed only tpuprt's TPU paths, which the port's kernels never
+# read: the BVH's leaf prim-id table and per-node boxes (its jnp and chunked
+# walks), the quadric rows' facts for its unrolled brute force.
+_TPU_ONLY = {D.BvhAccel: ("prim_ids", "selfbb"),
+             D.QuadricTable: ("static_rows",)}
 
 
 def _empty(v) -> bool:
@@ -37,10 +42,8 @@ def _empty(v) -> bool:
 def _build(cls, d: dict, device, where: str):
     names = {f.name for f in dataclasses.fields(cls)}
     extra = [k for k, v in d.items() if k not in names and not _empty(v)]
-    # The BVH's leaf prim-id table and per-node boxes feed only tpuprt's
-    # jnp and chunked walks; the port's kernels read neither.
+    extra = [k for k in extra if k not in _TPU_ONLY.get(cls, ())]
     if cls is D.BvhAccel:
-        extra = [k for k in extra if k not in ("prim_ids", "selfbb")]
         d = dict(d, nodes=pad_rows(d["nodes"]))
     if extra:
         raise NotImplementedError(f"{where}: {sorted(extra)} not ported")
@@ -56,9 +59,11 @@ def _build(cls, d: dict, device, where: str):
 
 
 def from_numpy_tables(tables: dict, device) -> D.SceneData:
-    """Port SceneData from the numpy tables of a tpuprt SceneData."""
-    if tables.get("accel") is None:
-        raise NotImplementedError("only BVH scenes are ported")
+    """Port SceneData from the numpy tables of a tpuprt SceneData (a BVH
+    scene, or one without an accelerator: accel None)."""
+    accel = tables.get("accel")
+    if accel is not None and "nodes" not in accel:
+        raise NotImplementedError("only the BVH and brute force are ported")
     top = {k: v for k, v in tables.items() if k not in _NESTED}
     scene = _build(D.SceneData, top, device, "SceneData")
     return dataclasses.replace(scene, **{

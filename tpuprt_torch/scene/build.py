@@ -1,7 +1,8 @@
 """Host-side scene compilation: builder calls -> SceneData (port of
-tpuprt/scene/build.py for triangle meshes and their non-emissive
-ObjectInstance prototypes, matte materials, constant and checkerboard
-textures, distant and infinite lights and the BVH).
+tpuprt/scene/build.py for quadrics, triangle meshes and their non-emissive
+ObjectInstance prototypes, matte and plastic materials, constant and
+checkerboard textures, distant and infinite lights, area lights on a
+sphere, disk or cylinder, and the accelerator policy: the BVH, or none).
 
 All assembly is host numpy with the reference's exact operations, so the
 finished tables equal the JAX package's bit for bit; `build()` wraps them
@@ -9,7 +10,8 @@ as CPU tensors (render() moves them to its device).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -21,6 +23,16 @@ from ..core import transform as tf
 from ..materials.factory import MATERIAL_KINDS, build_templates
 from ..textures.graph import TexGraph, TexNodeMeta, check_node
 from . import data as D
+
+
+@dataclass
+class _Quadric:
+    kind: int
+    o2w: np.ndarray
+    params: np.ndarray
+    material: int
+    area_light: int
+    flip: float
 
 
 @dataclass
@@ -39,8 +51,11 @@ class _Light:
     kind: int
     l2w: np.ndarray
     spectrum: np.ndarray
-    params: np.ndarray
+    params: np.ndarray = field(default_factory=lambda: np.zeros(
+        8, np.float32))
     nsamples: int = 1
+    area_first: int = 0
+    area_total: float = 0.0
 
 
 def _t(a):
@@ -49,6 +64,7 @@ def _t(a):
 
 class SceneBuilder:
     def __init__(self):
+        self.quadrics: List[_Quadric] = []
         self.meshes: List[_Mesh] = []
         self.materials: List[Tuple[int, List[int], int]] = []
         self.tex_nodes: List[TexNodeMeta] = []
@@ -99,6 +115,89 @@ class SceneBuilder:
                                            self.constant_texture(sigma)])
 
     # ---- shapes ---------------------------------------------------------
+    def _add_quadric(self, kind, o2w, params, material, area_light,
+                     reverse_orientation):
+        o2w = np.asarray(o2w, np.float32)
+        flip = -1.0 if (reverse_orientation ^ tf.swaps_handedness(o2w)) \
+            else 1.0
+        self.quadrics.append(_Quadric(kind, o2w,
+                                      np.asarray(params, np.float32),
+                                      material, area_light, flip))
+        return len(self.quadrics) - 1
+
+    def add_sphere(self, o2w, radius=1.0, zmin=None, zmax=None, phimax=360.0,
+                   material=0, area_light=-1, reverse_orientation=False):
+        zmin = -radius if zmin is None else max(zmin, -radius)
+        zmax = radius if zmax is None else min(zmax, radius)
+        # thetamin = acos(zmin) > thetamax = acos(zmax), stored as the
+        # reference does (sphere.cpp:93-98).
+        thetamin = math.acos(np.clip(zmin / radius, -1, 1))
+        thetamax = math.acos(np.clip(zmax / radius, -1, 1))
+        return self._add_quadric(
+            D.QUADRIC_SPHERE, o2w, [radius, zmin, zmax, math.radians(phimax),
+                                    thetamin, thetamax, 0, 0],
+            material, area_light, reverse_orientation)
+
+    def add_cylinder(self, o2w, radius=1.0, zmin=-1.0, zmax=1.0, phimax=360.0,
+                     material=0, area_light=-1, reverse_orientation=False):
+        return self._add_quadric(
+            D.QUADRIC_CYLINDER, o2w,
+            [radius, zmin, zmax, math.radians(phimax), 0, 0, 0, 0],
+            material, area_light, reverse_orientation)
+
+    def add_disk(self, o2w, height=0.0, radius=1.0, inner_radius=0.0,
+                 phimax=360.0, material=0, area_light=-1,
+                 reverse_orientation=False):
+        return self._add_quadric(
+            D.QUADRIC_DISK, o2w,
+            [height, radius, inner_radius, math.radians(phimax), 0, 0, 0, 0],
+            material, area_light, reverse_orientation)
+
+    def add_cone(self, o2w, radius=1.0, height=1.0, phimax=360.0, material=0,
+                 area_light=-1, reverse_orientation=False):
+        return self._add_quadric(
+            D.QUADRIC_CONE, o2w,
+            [radius, height, math.radians(phimax), 0, 0, 0, 0, 0],
+            material, area_light, reverse_orientation)
+
+    def add_paraboloid(self, o2w, radius=1.0, zmin=0.0, zmax=1.0,
+                       phimax=360.0, material=0, area_light=-1,
+                       reverse_orientation=False):
+        return self._add_quadric(
+            D.QUADRIC_PARABOLOID, o2w,
+            [radius, zmin, zmax, math.radians(phimax), 0, 0, 0, 0],
+            material, area_light, reverse_orientation)
+
+    def add_hyperboloid(self, o2w, p1=(0, 0, 0), p2=(1, 1, 1), phimax=360.0,
+                        material=0, area_light=-1, reverse_orientation=False):
+        """The implicit coefficients a, c of a(x^2 + y^2) - c z^2 = 1
+        through p1 and p2, solved as tpuprt's builder solves them
+        (scene/build.py:217-250; hyperboloid.cpp:38-70)."""
+        p1 = np.asarray(p1, np.float64)
+        p2 = np.asarray(p2, np.float64)
+        if p2[2] == 0:
+            p1, p2 = p2, p1
+        pp = p1.copy()
+        a = c = 0.0
+        for _ in range(1000):
+            pp = pp + 2.0 * (p2 - pp)
+            xy1 = pp[0] ** 2 + pp[1] ** 2
+            xy2 = p2[0] ** 2 + p2[1] ** 2
+            denom = xy1 * p2[2] ** 2 - xy2 * pp[2] ** 2
+            if abs(denom) > 1e-12:
+                a = 1.0 * (pp[2] ** 2) - 1.0 * (p2[2] ** 2)
+                m = np.array([[xy1, -pp[2] ** 2], [xy2, -p2[2] ** 2]])
+                try:
+                    a, c = np.linalg.solve(m, np.ones(2))
+                    if not (math.isinf(a) or math.isnan(a)):
+                        break
+                except np.linalg.LinAlgError:
+                    continue
+        return self._add_quadric(
+            D.QUADRIC_HYPERBOLOID, o2w,
+            [a, c, p1[2], p1[0], p1[1], p2[2], math.radians(phimax), 0],
+            material, area_light, reverse_orientation)
+
     def add_trianglemesh(self, o2w, indices, P, N=None, uv=None, S=None,
                          material=0, reverse_orientation=False):
         """World-space mesh like the reference TriangleMesh ctor
@@ -178,15 +277,61 @@ class SceneBuilder:
                                   np.zeros(8, np.float32), nsamples))
         return len(self.lights) - 1
 
+    def add_area_light_sphere(self, quadric_id: int, L=(1.0,) * 3,
+                              nsamples=1):
+        """Area light on a quadric: a sphere, disk or cylinder, the shapes
+        pbrt-v1 implements Sample and Area for (sphere.cpp:45-86,
+        disk.cpp:36-44,127-130, cylinder.cpp)."""
+        q = self.quadrics[quadric_id]
+        p = [float(x) for x in q.params]
+        if q.kind == D.QUADRIC_SPHERE:
+            area = p[3] * p[0] * (p[2] - p[1])      # phiMax r (zmax - zmin)
+        elif q.kind == D.QUADRIC_DISK:
+            area = 0.5 * p[3] * (p[1] * p[1] - p[2] * p[2])
+        elif q.kind == D.QUADRIC_CYLINDER:
+            area = (p[2] - p[1]) * p[0] * p[3]
+        else:
+            raise NotImplementedError(
+                f"area lights on quadric kind {q.kind} are not ported (pbrt-"
+                "v1 samples spheres, disks and cylinders only)")
+        self.lights.append(_Light(D.LIGHT_AREA, q.o2w,
+                                  np.asarray(L, np.float32),
+                                  nsamples=nsamples, area_first=quadric_id,
+                                  area_total=area))
+        q.area_light = len(self.lights) - 1
+        return q.area_light
+
     # ---- camera ---------------------------------------------------------
     def set_camera(self, cam: D.CameraData):
         self.camera = cam
 
     # ---- build ----------------------------------------------------------
     def build(self) -> D.SceneData:
-        if not self.meshes:
-            raise NotImplementedError("scenes without triangles are not "
-                                      "ported")
+        if not (self.meshes or self.quadrics):
+            raise NotImplementedError("scenes without triangles or quadrics "
+                                      "in the main aggregate are not ported")
+        qs = self.quadrics
+        if qs:
+            quad = D.QuadricTable(
+                kind=_t(np.asarray([q.kind for q in qs], np.int32)),
+                o2w=_t(np.stack([q.o2w for q in qs])),
+                w2o=_t(np.stack([np.linalg.inv(q.o2w).astype(np.float32)
+                                 for q in qs])),
+                params=_t(np.stack([q.params for q in qs])),
+                material=_t(np.asarray([q.material for q in qs], np.int32)),
+                area_light=_t(np.asarray([q.area_light for q in qs],
+                                         np.int32)),
+                flip_normal=_t(np.asarray([q.flip for q in qs], np.float32)),
+                count=len(qs),
+                kinds_present=tuple(sorted({q.kind for q in qs})))
+        else:
+            z, f32, i32 = np.zeros, np.float32, np.int32
+            quad = D.QuadricTable(
+                kind=_t(z(0, i32)), o2w=_t(z((0, 4, 4), f32)),
+                w2o=_t(z((0, 4, 4), f32)), params=_t(z((0, 8), f32)),
+                material=_t(z(0, i32)), area_light=_t(z(0, i32)),
+                flip_normal=_t(z(0, f32)))
+
         verts_l, idx_l, n_l, uv_l, tan_l = [], [], [], [], []
         hasn_l, hast_l, mat_l, flip_l = [], [], [], []
         voff = 0
@@ -206,15 +351,31 @@ class SceneBuilder:
             flip_l.append(np.full(nt, m.flip, np.float32))
             voff += nv
         nt_total = sum(len(m.idx) for m in self.meshes)
-        tri = D.TriangleTable(
-            verts=_t(np.concatenate(verts_l)), idx=_t(np.concatenate(idx_l)),
-            normals=_t(np.concatenate(n_l)), uv=_t(np.concatenate(uv_l)),
-            tangents=_t(np.concatenate(tan_l)),
-            has_normals=_t(np.concatenate(hasn_l)),
-            has_tangents=_t(np.concatenate(hast_l)),
-            material=_t(np.concatenate(mat_l)),
-            area_light=_t(np.full(nt_total, -1, np.int32)),
-            flip_normal=_t(np.concatenate(flip_l)), count=nt_total)
+        if nt_total:
+            tri = D.TriangleTable(
+                verts=_t(np.concatenate(verts_l)),
+                idx=_t(np.concatenate(idx_l)),
+                normals=_t(np.concatenate(n_l)),
+                uv=_t(np.concatenate(uv_l)),
+                tangents=_t(np.concatenate(tan_l)),
+                has_normals=_t(np.concatenate(hasn_l)),
+                has_tangents=_t(np.concatenate(hast_l)),
+                material=_t(np.concatenate(mat_l)),
+                area_light=_t(np.full(nt_total, -1, np.int32)),
+                flip_normal=_t(np.concatenate(flip_l)), count=nt_total)
+        else:
+            # tpuprt's empty table (one dummy vertex).
+            z = np.zeros
+            tri = D.TriangleTable(
+                verts=_t(z((1, 3), np.float32)),
+                idx=_t(z((0, 3), np.int32)),
+                normals=_t(z((1, 3), np.float32)),
+                uv=_t(z((1, 2), np.float32)),
+                tangents=_t(z((1, 3), np.float32)),
+                has_normals=_t(z((0,), bool)), has_tangents=_t(z((0,), bool)),
+                material=_t(z((0,), np.int32)),
+                area_light=_t(z((0,), np.int32)),
+                flip_normal=_t(z((0,), np.float32)), count=0)
 
         if not self.materials:
             self.matte()
@@ -246,9 +407,12 @@ class SceneBuilder:
             spectrum=_t(np.stack([l.spectrum for l in ls])),
             params=_t(np.stack([l.params for l in ls])),
             nsamples=i32([l.nsamples for l in ls]),
-            image=i32([-1] * nl), area_geom_kind=i32([0] * nl),
-            area_first=i32([0] * nl), area_count=i32([1] * nl),
-            area_total_area=_t(np.zeros(nl, np.float32)),
+            image=i32([-1] * nl),
+            area_geom_kind=i32([D.AREA_GEOM_QUADRIC] * nl),
+            area_first=i32([l.area_first for l in ls]),
+            area_count=i32([1] * nl),
+            area_total_area=_t(np.asarray([l.area_total for l in ls],
+                                          np.float32)),
             cdf_offset=i32([2 * i for i in range(nl)]),
             area_cdf=_t(np.asarray([0.0, 1.0] * nl, np.float32)),
             count=nl,
@@ -258,8 +422,21 @@ class SceneBuilder:
                                 if l.kind == D.LIGHT_INFINITE),
             max_area_count=1)
 
-        wlo = np.minimum.reduce([m.verts.min(0) for m in self.meshes])
-        whi = np.maximum.reduce([m.verts.max(0) for m in self.meshes])
+        # World bound: each quadric's box of half-width max |params[0:3]|
+        # (tpuprt/scene/build.py:685-702), each mesh's vertices.
+        los, his = [], []
+        for q in qs:
+            r = float(np.abs(q.params[:3]).max()) + 1e-3
+            corners = np.array([[sx, sy, sz] for sx in (-r, r)
+                                for sy in (-r, r) for sz in (-r, r)])
+            wc = corners @ q.o2w[:3, :3].T + q.o2w[:3, 3]
+            los.append(wc.min(0))
+            his.append(wc.max(0))
+        for m in self.meshes:
+            los.append(m.verts.min(0))
+            his.append(m.verts.max(0))
+        wlo = np.minimum.reduce(los).astype(np.float32)
+        whi = np.maximum.reduce(his).astype(np.float32)
 
         # Ray-transform instances (accel/instances.py): prototype BLAS
         # tables + per-instance transforms; the world bound covers them.
@@ -269,16 +446,27 @@ class SceneBuilder:
             wlo = np.minimum(wlo, inst_tab.bounds_lo.numpy())
             whi = np.maximum(whi, inst_tab.bounds_hi.numpy())
 
-        # Accelerator: the BVH above 4096 prims (scene/build.py:759-779).
-        if not (self.accel_kind == "bvh" or
-                (self.accel_kind == "auto" and nt_total > 4096)):
+        # Accelerator (tpuprt/scene/build.py:755-779): "bvh", or "auto"
+        # above 4096 prims, builds the BVH; "auto" at 64 prims or fewer,
+        # "none" and any other name leave none (brute force). The grid and
+        # the kd-tree are not ported.
+        nprims = len(qs) + nt_total
+        kind = self.accel_kind
+        accel = None
+        if kind in ("grid", "kdtree") or (kind == "auto" and
+                                          64 < nprims <= 4096):
             raise NotImplementedError(
-                f'accelerator "{self.accel_kind}" for {nt_total} prims is '
-                "not ported (the BVH only: Accelerator \"bvh\" or more than "
-                "4096 triangles)")
+                f'accelerator "{kind}" for {nprims} prims is not ported '
+                '(the BVH: "bvh" or more than 4096 prims; none: "none" or '
+                "at most 64 prims)")
+        if kind == "bvh" or (kind == "auto" and nprims > 4096):
+            if qs:
+                raise NotImplementedError(
+                    "quadrics inside a BVH are not ported")
+            accel = build_bvh(tri)
         return D.SceneData(
             triangles=tri, materials=materials, textures=textures,
-            lights=lt_tab, camera=self.camera, accel=build_bvh(tri),
-            instances=inst_tab,
+            lights=lt_tab, camera=self.camera, accel=accel,
+            instances=inst_tab, quadrics=quad,
             world_bound_lo=_t(wlo.astype(np.float32)),
             world_bound_hi=_t(whi.astype(np.float32)))

@@ -3,9 +3,9 @@ the tables the port renders).
 
 Fields keep the reference's names and layouts; counts and other structure
 the reference marks static stay plain Python values. `-1` is the universal
-"no reference" id. A primitive id is a triangle id, or past the triangles
-an instanced prototype triangle's (accel/instances.py): the port builds no
-quadrics, so the reference's quadric offset NQ is 0 throughout.
+"no reference" id. A primitive id is, as in the reference, a quadric id q
+in [0, NQ), a triangle id t as NQ + t, or past both an instanced prototype
+triangle's (accel/instances.py).
 """
 from __future__ import annotations
 
@@ -15,11 +15,46 @@ from typing import Any, Tuple
 
 import torch
 
+QUADRIC_SPHERE = 0
+QUADRIC_CYLINDER = 1
+QUADRIC_DISK = 2
+QUADRIC_CONE = 3
+QUADRIC_PARABOLOID = 4
+QUADRIC_HYPERBOLOID = 5
+
 LIGHT_DISTANT = 2
 LIGHT_AREA = 3
 LIGHT_INFINITE = 4
 
+# Area-light geometry kinds (the port samples AREA_GEOM_QUADRIC only).
+AREA_GEOM_QUADRIC = 0
+AREA_GEOM_TRIS = 1
+AREA_GEOM_INST = 2
+
 CAMERA_PERSPECTIVE = 0
+
+
+@dataclass
+class QuadricTable:
+    """All quadric shapes (pbrt-v1 shapes/{sphere,cylinder,disk,cone,
+    paraboloid,hyperboloid}.cpp), in object space with both transforms.
+    ``params`` per kind:
+      sphere:      [radius, zmin, zmax, phimax, thetamin, thetamax, 0, 0]
+      cylinder:    [radius, zmin, zmax, phimax, 0...]
+      disk:        [height, radius, inner_radius, phimax, 0...]
+      cone:        [radius, height, phimax, 0...]
+      paraboloid:  [radius, zmin, zmax, phimax, 0...]
+      hyperboloid: [a, c, p1z, p1x, p1y, p2z, phimax, 0]
+    (angles in radians)."""
+    kind: torch.Tensor         # i32[Q]
+    o2w: torch.Tensor          # f32[Q,4,4]
+    w2o: torch.Tensor          # f32[Q,4,4]
+    params: torch.Tensor       # f32[Q,8]
+    material: torch.Tensor     # i32[Q]
+    area_light: torch.Tensor   # i32[Q], -1 if not emissive
+    flip_normal: torch.Tensor  # f32[Q]: reverseOrientation ^ swapsHandedness
+    count: int = 0
+    kinds_present: Tuple = ()
 
 
 @dataclass
@@ -65,8 +100,10 @@ class MaterialTable:
 
 @dataclass
 class LightTable:
-    """Distant and infinite lights; ``params[0:3]`` of a distant light is
-    its world direction."""
+    """Distant, infinite and area lights; ``params[0:3]`` of a distant
+    light is its world direction; an area light's geometry is the quadric
+    ``area_first`` (``area_geom_kind`` AREA_GEOM_QUADRIC) of total area
+    ``area_total_area``."""
     kind: torch.Tensor         # i32[L]
     l2w: torch.Tensor          # f32[L,4,4]
     w2l: torch.Tensor          # f32[L,4,4]
@@ -172,8 +209,12 @@ class SceneData:
     textures: Any = None             # textures.graph.TexGraph
     lights: LightTable = None
     camera: CameraData = None
-    accel: BvhAccel = None
+    accel: BvhAccel = None           # None: brute force (accel/intersect.py)
     instances: InstanceTable = None  # ray-transform instancing, or None
+    quadrics: QuadricTable = None
+    # The brute-force kernel's packed triangles f32[9,T] (ops/mt_cuda.
+    # pack_tris), made once per render by render() when accel is None.
+    tris_packed: torch.Tensor = None
     world_bound_lo: torch.Tensor = None  # f32[3]
     world_bound_hi: torch.Tensor = None
 

@@ -4,11 +4,13 @@ tpuprt/scene/parser.py for the statements the port renders).
 Statements: Film, LookAt, Camera "perspective", Sampler, PixelFilter,
 SurfaceIntegrator, Accelerator, WorldBegin/End, AttributeBegin/End,
 TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
-Texture "checkerboard" and "constant", Material "matte", LightSource
-"infinite" (no map) and "distant", Shape "trianglemesh", and
-ObjectBegin/ObjectEnd/ObjectInstance of non-emissive triangle meshes (ray-
-transform instancing). Anything else raises NotImplementedError naming
-what is missing.
+ReverseOrientation, Texture "checkerboard" and "constant", Material
+"matte" and "plastic", LightSource "infinite" (no map) and "distant",
+AreaLightSource "area" on a sphere, disk or cylinder, Shape "trianglemesh"
+and the six quadrics (sphere, cylinder, disk, cone, paraboloid,
+hyperboloid), and ObjectBegin/ObjectEnd/ObjectInstance of non-emissive
+triangle meshes (ray-transform instancing). Anything else raises
+NotImplementedError naming what is missing.
 
 Bracketed number lists are converted with numpy in one call per list, not
 per token, so a multi-megabyte mesh parses in seconds. Values go through
@@ -168,6 +170,8 @@ class PbrtParser:
         self.ctm_stack: List[np.ndarray] = []
         self.material = ("matte", ParamSet({}))
         self.material_id = None
+        self.area_light = None            # the AreaLightSource's params
+        self.reverse_orientation = False
         self.gs_stack: List[tuple] = []
         self.named_textures: Dict[str, int] = {}
         self.camera_name = "perspective"
@@ -211,11 +215,15 @@ class PbrtParser:
             m = np.asarray(ts.numbers(16), np.float32).reshape(4, 4).T
             self.ctm = m if name == "Transform" else self.ctm @ m
         elif name == "AttributeBegin":
-            self.gs_stack.append((self.material, self.material_id))
+            self.gs_stack.append((self.material, self.material_id,
+                                  self.area_light, self.reverse_orientation))
             self.ctm_stack.append(self.ctm.copy())
         elif name == "AttributeEnd":
-            self.material, self.material_id = self.gs_stack.pop()
+            (self.material, self.material_id, self.area_light,
+             self.reverse_orientation) = self.gs_stack.pop()
             self.ctm = self.ctm_stack.pop()
+        elif name == "ReverseOrientation":
+            self.reverse_orientation = not self.reverse_orientation
         elif name == "TransformBegin":
             self.ctm_stack.append(self.ctm.copy())
         elif name == "TransformEnd":
@@ -255,10 +263,14 @@ class PbrtParser:
         elif name == "LightSource":
             self._make_light(ts.next()[1], ts.params())
         elif name == "AreaLightSource":
-            raise NotImplementedError(
-                "instanced area emitters are not ported"
-                if self.current_object is not None
-                else "area lights are not ported")
+            if self.current_object is not None:
+                raise NotImplementedError(
+                    "instanced area emitters are not ported")
+            kind, params = ts.next()[1], ts.params()
+            if kind != "area":
+                raise NotImplementedError(
+                    f'area light "{kind}" is not ported')
+            self.area_light = params
         elif name == "Shape":
             kind, params = ts.next()[1], ts.params()
             if self.current_object is None:
@@ -266,12 +278,16 @@ class PbrtParser:
             elif kind != "trianglemesh":
                 raise NotImplementedError(
                     f'shape "{kind}" inside ObjectBegin is not ported: only '
-                    "triangle meshes instance (quadric folding needs "
-                    "quadrics, which are not ported)")
+                    "triangle meshes instance (quadric folding is not "
+                    "ported)")
+            elif self.area_light is not None:
+                raise NotImplementedError(
+                    "instanced area emitters are not ported")
             else:
                 self.objects[self.current_object].append(
                     (params, self.ctm.copy(),
-                     [self.material, self.material_id]))
+                     [self.material, self.material_id],
+                     self.reverse_orientation))
         elif name == "ObjectBegin":
             self.current_object = ts.next()[1]
             self.objects[self.current_object] = []
@@ -296,13 +312,18 @@ class PbrtParser:
 
     def _make_material(self, material) -> int:
         kind, params = material
-        if kind != "matte":
-            raise NotImplementedError(f'material "{kind}" is not ported')
         if params.is_texture("bumpmap"):
             raise NotImplementedError("bump mapping is not ported")
-        return self.builder.add_material("matte", [
-            self._child(params, "Kd", (0.5,) * 3),
-            self._child(params, "sigma", 0.0, True)])
+        if kind == "matte":
+            return self.builder.add_material("matte", [
+                self._child(params, "Kd", (0.5,) * 3),
+                self._child(params, "sigma", 0.0, True)])
+        if kind == "plastic":
+            return self.builder.add_material("plastic", [
+                self._child(params, "Kd", (0.25,) * 3),
+                self._child(params, "Ks", (0.25,) * 3),
+                self._child(params, "roughness", 0.1, True)])
+        raise NotImplementedError(f'material "{kind}" is not ported')
 
     def _material_id(self) -> int:
         if self.material_id is None:
@@ -313,7 +334,8 @@ class PbrtParser:
         """ObjectInstance: each recorded mesh of the object becomes one
         shared prototype (made at its first instance, with the material
         state recorded beside it) and an instance under the current CTM."""
-        for i, (params, sctm, mat) in enumerate(self.objects.get(name, [])):
+        for i, (params, sctm, mat, ro) in enumerate(
+                self.objects.get(name, [])):
             pid = self._proto_cache.get((name, i))
             if pid is None:
                 if mat[1] is None:
@@ -324,7 +346,7 @@ class PbrtParser:
                 pid = self.builder.add_prototype(
                     params.find_ints("indices"), params.find_floats("P"),
                     N=params.find_floats("N"), uv=uv, material=mat[1],
-                    o2w=sctm)
+                    reverse_orientation=ro, o2w=sctm)
                 self._proto_cache[(name, i)] = pid
             self.builder.add_instance(pid, self.ctm)
 
@@ -364,15 +386,58 @@ class PbrtParser:
                 "without a map)")
 
     def _make_shape(self, kind: str, params: ParamSet):
-        if kind != "trianglemesh":
+        """Shape (tpuprt/scene/parser.py:696-758): the material is made
+        first, then the shape, then its area light."""
+        b = self.builder
+        if kind not in ("trianglemesh", "sphere", "cylinder", "disk", "cone",
+                        "paraboloid", "hyperboloid"):
             raise NotImplementedError(f'shape "{kind}" is not ported')
-        uv = params.find_floats("uv")
-        if uv is None:
-            uv = params.find_floats("st")
-        self.builder.add_trianglemesh(
-            self.ctm, params.find_ints("indices"), params.find_floats("P"),
-            params.find_floats("N"), uv, params.find_floats("S"),
-            self._material_id())
+        if self.area_light is not None and kind not in ("sphere",
+                                                        "cylinder", "disk"):
+            raise NotImplementedError(
+                f'area lights on shape "{kind}" are not ported (spheres, '
+                "disks and cylinders)")
+        mat = self._material_id()
+        ro = self.reverse_orientation
+        one = params.find_one
+        if kind == "trianglemesh":
+            uv = params.find_floats("uv")
+            if uv is None:
+                uv = params.find_floats("st")
+            b.add_trianglemesh(
+                self.ctm, params.find_ints("indices"),
+                params.find_floats("P"), params.find_floats("N"), uv,
+                params.find_floats("S"), mat, reverse_orientation=ro)
+            return
+        if kind == "sphere":
+            r = one("radius", 1.0)
+            qid = b.add_sphere(self.ctm, r, one("zmin", -r), one("zmax", r),
+                               one("phimax", 360.0), mat, -1, ro)
+        elif kind == "cylinder":
+            qid = b.add_cylinder(self.ctm, one("radius", 1.0),
+                                 one("zmin", -1.0), one("zmax", 1.0),
+                                 one("phimax", 360.0), mat, -1, ro)
+        elif kind == "disk":
+            qid = b.add_disk(self.ctm, one("height", 0.0), one("radius", 1.0),
+                             one("innerradius", 0.0), one("phimax", 360.0),
+                             mat, -1, ro)
+        elif kind == "cone":
+            qid = b.add_cone(self.ctm, one("radius", 1.0), one("height", 1.0),
+                             one("phimax", 360.0), mat, -1, ro)
+        elif kind == "paraboloid":
+            r = one("radius", 1.0)
+            qid = b.add_paraboloid(self.ctm, r, one("zmin", 0.0),
+                                   one("zmax", 1.0), one("phimax", 360.0),
+                                   mat, -1, ro)
+        else:
+            qid = b.add_hyperboloid(self.ctm,
+                                    params.find_point("p1", (0, 0, 0)),
+                                    params.find_point("p2", (1, 1, 1)),
+                                    one("phimax", 360.0), mat, -1, ro)
+        if self.area_light is not None:
+            b.add_area_light_sphere(
+                qid, self.area_light.find_spectrum("L", (1.0,) * 3),
+                self.area_light.find_one("nsamples", 1))
 
     def finish(self):
         """MakeScene (api.cpp:484-529): camera + scene + options."""

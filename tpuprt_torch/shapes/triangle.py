@@ -19,8 +19,13 @@ def gather_verts(tri: TriangleTable, tid):
 def intersect_pairs(p0, p1, p2, o, d, mint, maxt):
     """Edge test for broadcast-compatible point/ray stacks.
     Returns (t, b1, b2, valid)."""
-    e1 = p1 - p0
-    e2 = p2 - p0
+    return intersect_edges(p0, p1 - p0, p2 - p0, o, d, mint, maxt)
+
+
+def intersect_edges(p0, e1, e2, o, d, mint, maxt):
+    """intersect_pairs with the edges e1 = p1 - p0, e2 = p2 - p0 given (as
+    the brute-force kernel's packed triangles carry them). The CUDA kernel
+    (ops/csrc/mt_best.cu) repeats these steps in this order."""
     s1 = vm.cross(d, e2)
     div = vm.dot(s1, e1)
     ok = torch.abs(div) > 1e-12
@@ -33,6 +38,17 @@ def intersect_pairs(p0, p1, p2, o, d, mint, maxt):
     valid = ok & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0) & \
         (t > mint) & (t < maxt)
     return t, b1, b2, valid
+
+
+def intersect(tri: TriangleTable, o, d, mint, maxt):
+    """All-pairs test: o, d f32[N,3] vs the T triangles -> (t f32[N,T],
+    1e30 where invalid, valid bool[N,T])."""
+    p0, p1, p2 = gather_verts(tri, torch.arange(tri.count,
+                                                device=o.device))
+    t, _, _, valid = intersect_pairs(
+        p0[None], p1[None], p2[None],
+        o[:, None], d[:, None], mint[:, None], maxt[:, None])
+    return torch.where(valid, t, _BIG), valid
 
 
 def differential_geometry(tri: TriangleTable, tid, o, d, t):
