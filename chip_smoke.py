@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``tpuprt_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--exr PATH] [--profile]
+    python3 chip_smoke.py --old DIR
 
 Phases, one JSON line each; any failure raises and exits nonzero:
 
@@ -20,37 +21,57 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    tree too deep for the tile walk leaves it in): the row walk's launch
    count must be > 0, the image inside the same band.
 6. parity  -- the rocks scene (config4_big + 1000 ObjectInstances of a
-   1280-triangle rock): its camera rays and 256K random rays through the
-   instanced walk and its plain version, both modes.
+   1280-triangle rock): its camera rays and 256K random rays, in lane
+   order as the front end hands them over, through the instanced walk
+   (top-level BVH over the entries) and its plain version (entries in
+   order), both modes; and
+   a tie set, the rocks with every 10th instance repeated after the others
+   (same prototype, same transform), where the earliest entry must win:
+   ids, instances and t per ray.
 7. render  -- the rocks scene through load_scene_string -> render ->
    write_exr: the tile and instanced walks' launch counts must be > 0, the
    image finite and, against the same rocks duplicated into the main mesh
    (1.38M triangles), inside test_instances' band.
 8. parity  -- the brute-force kernel (mt_best) against its plain version:
    config2 with Accelerator "none" (1,282 triangles), its 128x128x32
-   camera rays and 256K random rays; every 8th of config4_big's camera rays
-   (128K) against all its 99,458 triangles.
+   camera rays and 256K random rays, both modes; every 8th of config4_big's
+   camera rays (128K) against all its 99,458 triangles; an adversarial set
+   at the edges of the kernel's staged rejects (adversarial_mt_set), all
+   triangles at once in both modes and one launch per triangle (every
+   pair's own result).
 9. render  -- config2 with Accelerator "none" through load_scene_string ->
    render -> write_exr: mt_best's launch count must be > 0, the image
    finite and inside test_golden's band around scenes/golden2.exr.
 10. render -- config4_big without an accelerator (every camera and shadow
-   ray against every triangle): mt_best launched, the image inside the
-   band of phase 4.
+   ray against every triangle): mt_best launched, its shadow calls in
+   any-hit mode, the image inside the band of phase 4. Then the render's
+   real shadow batch (393K rays) through mt_best in any-hit mode against
+   the plain version.
 
 Each parity line carries the kernel's and the plain version's times and
 the kernel's bound (the least time the card could take: the bytes it must
 move over the memory rate, or the ray-box, ray-triangle and transform
 operations these rays need, counted by the plain version, over the f32
-rate; for the instanced walk, only the entries a ray's final window meets,
-not the kernel's test of every entry box; for mt_best, every triangle for
-each ray with a non-empty window). Then the card's name and power limit,
-the kernel table, and as the last line ``{"ok": true, "device": {...}}``.
-Without a CUDA device it exits nonzero and prints no result. ``--exr PATH``
-also keeps config4_big's image; ``--profile`` profiles one more render of
-config4_big, of the rocks scene and of config4_big without an accelerator
-(phase "profile").
+rate; for the instanced walk, only the entries a ray's final window meets;
+for mt_best, each pair priced by the stage of its staged rejects that
+settles it, and in any-hit mode only the pairs up to a ray's first hit),
+and the floor that -fmad=false sets (the same operations, one instruction
+each, at 128 lanes a clock on each SM). Then the card's name and power
+limit, the kernel table, and as the last line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits nonzero and prints no result.
+``--exr PATH`` also keeps config4_big's image; ``--profile`` profiles one
+more render of config4_big, of the rocks scene, of config2/none and of
+config4_big without an accelerator (phase "profile").
+
+``--old DIR`` runs no smoke phase: it times the earlier ``mt_best.cu``
+and ``bvh_rows.cu`` of commit 5d4361e (the one-step mt_best, the instanced
+walk's loop over every entry), copied into DIR (``git show
+5d4361e:tpuprt_torch/ops/csrc/mt_best.cu``), against the checkout's, with
+their front ends, in one process (ab_main). It refuses a source whose C
+interface is not theirs (OLD_INTERFACES).
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,19 +108,25 @@ N_ROCKS, ROCK_SUBDIV, ROCK_SEED = 1000, 3, 1
 DUP_CLOSE, DUP_SHARE, DUP_MEAN = 2e-3, 0.995, 1e-3
 
 # The bound. Published H100 SXM peaks (NVIDIA's H100 datasheet): HBM
-# 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s. Operations per test,
-# as the kernels compute them: a slab test (of a node's or an instance
-# entry's box) is 6 sub + 6 mul, 12 min/max, the window clip (min, mul)
-# and a compare; a Moller-Trumbore test 56 (the tile walk's and mt_best's
-# edges come precomputed) or 62 (the row walk forms them); a ray moved into an
-# instance's object space 45 (two 3x4 transforms and three safe
-# reciprocals). Bytes of a row-format node: the 88 of its 128 columns the
-# walks read (box, skip, nprims, 8 triangles, 8 ids).
+# 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s (a fused multiply-add
+# counted as two). Operations per test, as the kernels compute them: a slab
+# test (of a node's or an instance entry's box) is 6 sub + 6 mul, 12
+# min/max, the window clip (min, mul) and a compare; a Moller-Trumbore test
+# 56 (the tile walk's edges come precomputed) or 62 (the row walk forms
+# them); mt_best's pairs by the stage that settles them (mt_best.cu): 24
+# operations up to b1's sign test, 39 up to b2's, 45 up to t's, 56 through
+# the full test; a ray moved into an instance's object space 45 (two 3x4
+# transforms and three safe reciprocals). Bytes of a row-format node: the
+# 88 of its 128 columns the walks read (box, skip, nprims, 8 triangles, 8
+# ids). Built with -fmad=false, every operation is its own instruction:
+# the floor at 128 f32 lanes a clock on each SM is twice the bound.
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 SLAB_OPS, XFORM_OPS = 27, 45
 ROW_BYTES = 88 * 4
-TRI_OPS = {"bvh_tiles": 56, "bvh_rows": 62, "bvh_instanced": 62,
-           "mt_best": 56}
+TRI_OPS = {"bvh_tiles": 56, "bvh_rows": 62, "bvh_instanced": 62}
+MT_STAGE_OPS = {"b1": 24, "b2": 39, "t": 45, "full": 56}
+# Instanced tie set: every DUP_EVERY-th rock repeated after the others.
+DUP_EVERY = 10
 REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:860",
             "bvh_rows": "tpuprt/ops/bvh_pallas.py:457",
             "bvh_instanced": "tpuprt/ops/bvh_pallas.py:1182",
@@ -112,7 +139,7 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def rocks_scene_text(base_text, n_rocks, subdiv, seed):
+def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0):
     """`base_text` (a config4-style terrain scene) with `n_rocks` instances
     of one rock inserted before its WorldEnd.
 
@@ -124,7 +151,9 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed):
     take evenly spaced cells), on the terrain's height function
     (make_scenes.terrain), with a uniform yaw and a scale in [0.015, 0.04];
     every 10th is mirrored (Scale -1 1 1) and every 7th scaled by k in
-    [0.5, 1.5] along y (a non-uniform scale)."""
+    [0.5, 1.5] along y (a non-uniform scale). With dup_every k > 0, every
+    k-th instance is placed again after all of them: the same prototype
+    under the same transform, so its hits tie exactly with the first's."""
     import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_scenes import icosphere
@@ -143,6 +172,7 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed):
            f'  "point P" [{nums(verts)}]\n  "normal N" [{nums(dirs)}]\n',
            f'  "float uv" [{nums(np.stack([u, v], 1))}]\n', "ObjectEnd\n"]
     nx, nz = 40, 25
+    blocks = []
     for i in range(n_rocks):
         cell = i * (nx * nz) // n_rocks
         x = -0.95 + (cell % nx + 0.5 + rng.uniform(-0.3, 0.3)) * 1.9 / nx
@@ -150,14 +180,17 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed):
         h = 0.35 * (np.sin(3.1 * x) * np.cos(2.7 * z) +
                     0.4 * np.sin(7.3 * x + 1.1) * np.sin(6.1 * z))
         s = rng.uniform(0.015, 0.04)
-        out.append(f"AttributeBegin\n  Translate {x:.6g} {h:.6g} {z:.6g}\n"
-                   f"  Rotate {rng.uniform(0.0, 360.0):.6g} 0 1 0\n"
-                   f"  Scale {s:.6g} {s:.6g} {s:.6g}\n")
+        b = (f"AttributeBegin\n  Translate {x:.6g} {h:.6g} {z:.6g}\n"
+             f"  Rotate {rng.uniform(0.0, 360.0):.6g} 0 1 0\n"
+             f"  Scale {s:.6g} {s:.6g} {s:.6g}\n")
         if i % 10 == 0:
-            out.append("  Scale -1 1 1\n")
+            b += "  Scale -1 1 1\n"
         if i % 7 == 3:
-            out.append(f"  Scale 1 {rng.uniform(0.5, 1.5):.6g} 1\n")
-        out.append('  ObjectInstance "rock"\nAttributeEnd\n')
+            b += f"  Scale 1 {rng.uniform(0.5, 1.5):.6g} 1\n"
+        blocks.append(b + '  ObjectInstance "rock"\nAttributeEnd\n')
+    out += blocks
+    if dup_every:
+        out += blocks[::dup_every]
     cut = base_text.rindex("WorldEnd")
     return base_text[:cut] + "".join(out) + base_text[cut:]
 
@@ -203,8 +236,8 @@ def sort_packed(bvh, rays):
     """The front end's coherence order (ops/bvh_cuda.intersect), so a
     kernel is timed on rays as the render hands them over."""
     from tpuprt_torch.ops import bvh_cuda
-    order = bvh_cuda.sort_key(bvh, rays[0:3].T, rays[3:6].T).argsort(
-        stable=True)
+    order = bvh_cuda.sort_key(bvh.bounds_lo, bvh.bounds_hi, rays[0:3].T,
+                              rays[3:6].T).argsort(stable=True)
     return rays[:, order].contiguous()
 
 
@@ -252,23 +285,28 @@ def compare(ref, got):
 def bound(name, nbytes, counts):
     """(ms, "bytes" | "operations", ops): the larger of the bytes over the
     memory rate and the counted tests' operations over the f32 rate."""
-    ops = SLAB_OPS * (counts.get("slab", 0) + counts.get("entry", 0)) + \
-        TRI_OPS[name] * counts["tri"] + XFORM_OPS * counts.get("xform", 0)
+    if name == "mt_best":
+        ops = sum(MT_STAGE_OPS[k] * counts[k] for k in MT_STAGE_OPS)
+    else:
+        ops = SLAB_OPS * (counts.get("slab", 0) + counts.get("entry", 0)) + \
+            TRI_OPS[name] * counts["tri"] + XFORM_OPS * counts.get("xform", 0)
     t_bytes, t_ops = nbytes / HBM_BPS, ops / F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", ops)
 
 
 def parity(label, name, kernel, ref, table_bytes, rays, reps=5,
-           modes=(False, True)):
+           modes=(False, True), plain_reps=None):
     """Kernel vs plain version on one packed ray set, in each mode (any_hit
     False, True): nearest must agree per ray (masks, ids outside ties, t),
     any-hit in its masks. `kernel(rays, any_hit)` and `ref(rays, any_hit,
-    with_counts)` return (t, id[, inst][, counts])."""
+    with_counts)` return (t, id[, inst][, counts]). The plain version is
+    timed over plain_reps calls (default reps)."""
     results = []
     for any_hit in modes:
         ms, got = timed(lambda: kernel(rays, any_hit), reps)
-        plain_ms, _ = timed(lambda: ref(rays, any_hit, False), reps)
+        plain_ms, _ = timed(lambda: ref(rays, any_hit, False),
+                            plain_reps or reps)
         *want, counts = ref(rays, any_hit, True)
         r = compare(want, got)
         n = rays.shape[1]
@@ -277,6 +315,7 @@ def parity(label, name, kernel, ref, table_bytes, rays, reps=5,
         r.update(phase="parity", kernel=name, set=label,
                  mode="any" if any_hit else "nearest", ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 fmad_floor_ms=ops / (F32_FLOPS / 2) * 1e3,
                  bytes=nbytes, ops=ops, counts=counts)
         emit(**r)
         bad = r["hit_mask_mismatch"] or (not any_hit and (
@@ -311,7 +350,10 @@ def rows_parity(label, bvh, rays, reps=5):
         bvh.n_nodes * ROW_BYTES, rays, reps)
 
 
-def instanced_parity(label, inst, rays, reps=5):
+def instanced_parity(label, inst, rays, reps=5, exact=False):
+    """The instanced walk vs its plain version; `exact` also requires, in
+    nearest mode, equal ids, instances and t on every ray, ties included
+    (the tie set)."""
     from tpuprt_torch.ops import bvh_cuda
     w2o12 = inst.inst_w2o[:, :3, :].reshape(inst.count, 12).contiguous()
     args = (inst.nodes, inst.entry_block, inst.entry_inst, inst.entry_start,
@@ -322,24 +364,144 @@ def instanced_parity(label, inst, rays, reps=5):
                     (inst.entry_stop - inst.entry_start).tolist()))
     table_bytes = sum(used.values()) * ROW_BYTES + \
         inst.n_entries * 10 * 4 + w2o12.numel() * 4
-    return parity(
+    rs = parity(
         label, "bvh_instanced",
         lambda r, a: bvh_cuda.traverse_instanced(*args, r,
                                                  cap=inst.block_cap,
+                                                 top=inst.top_nodes,
                                                  any_hit=a),
         lambda r, a, c: bvh_cuda.traverse_instanced_ref(
             *args, r, cap=inst.block_cap, any_hit=a, with_counts=c),
         table_bytes, rays, reps)
+    if exact:
+        got = bvh_cuda.traverse_instanced(*args, rays, cap=inst.block_cap,
+                                          top=inst.top_nodes)
+        want = bvh_cuda.traverse_instanced_ref(*args, rays,
+                                               cap=inst.block_cap)
+        differ = [int((a != b).sum()) for a, b in zip(want, got)]
+        emit(phase="parity", kernel="bvh_instanced", set=label,
+             mode="nearest, exact", t_differ=differ[0], id_differ=differ[1],
+             inst_differ=differ[2], hits=int((want[1] >= 0).sum()))
+        if any(differ):
+            raise AssertionError(f"{label}: ids, instances or t differ "
+                                 f"{differ}")
+    return rs
 
 
-def mt_parity(label, tris, rays, reps=5):
-    """mt_best vs mt_best_ref (nearest hits only: the kernel has no any-hit
-    mode). Bytes: the 9-float triangles once."""
+def mt_parity(label, tris, rays, reps=5, modes=(False, True),
+              plain_reps=None):
+    """mt_best vs mt_best_ref, nearest and any-hit. Both modes' results
+    are fixed per ray (any-hit: the lowest-index hit), so t and ids must be
+    equal bit for bit in both. Bytes: the 9-float triangles once."""
     from tpuprt_torch.ops import mt_cuda
-    return parity(
-        label, "mt_best", lambda r, a: mt_cuda.mt_best(r, tris),
-        lambda r, a, c: mt_cuda.mt_best_ref(r, tris, with_counts=c),
-        tris.numel() * 4, rays, reps, modes=(False,))
+    rs = parity(
+        label, "mt_best", lambda r, a: mt_cuda.mt_best(r, tris, any_hit=a),
+        lambda r, a, c: mt_cuda.mt_best_ref(r, tris, any_hit=a,
+                                            with_counts=c),
+        tris.numel() * 4, rays, reps, modes=modes, plain_reps=plain_reps)
+    for r in rs:
+        if r["id_mismatch"] or r["id_mismatch_at_ties"] or r["t_rel_max"]:
+            raise AssertionError(f"mt_best is not bit-equal: {r}")
+    return rs
+
+
+def adversarial_mt_set(seed, n_rays=1 << 16, n_tris=64):
+    """Packed (tris f32[9,T], rays f32[8,N]) at the edges of mt_best's
+    staged rejects, as numpy. Triangles span scales 1e-7 to 3e10 (so |div|
+    runs from below 1e-12 past the guard at 1e20), the last eighth exact
+    copies of earlier ones. Each ray aims at one triangle: at a vertex
+    exactly (b1 or b2 = 0, numerators near or at +-0), at an edge point,
+    inside it, or along its plane (div near 0); a tenth of the directions
+    have an exact zero component; a fifth of the windows start at -1e30
+    (negative t can win), a tenth are empty, a tenth end short."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_own = n_tris - n_tris // 8
+    scale = 10.0 ** np.linspace(-7.0, 10.5, n_own)
+    c = rng.uniform(-10, 10, (n_own, 3))
+    p = c[:, None] + scale[:, None, None] * rng.normal(size=(n_own, 3, 3))
+    p = np.concatenate([p, p[rng.integers(0, n_own, n_tris - n_own)]])
+    p = p.astype(np.float32)
+    pk = p[rng.integers(0, n_tris, n_rays)].astype(np.float64)
+    kind = rng.integers(0, 4, n_rays)[:, None]
+    u = rng.uniform(0, 1, (n_rays, 1))
+    bary = np.where(kind == 0, np.eye(3)[rng.integers(0, 3, n_rays)],
+                    np.where(kind == 1, np.concatenate(
+                        [u, 1 - u, 0 * u], 1),
+                        rng.dirichlet(np.ones(3), n_rays)))
+    tgt = (bary[:, :, None] * pk).sum(1)
+    e1, e2 = pk[:, 1] - pk[:, 0], pk[:, 2] - pk[:, 0]
+    nrm = np.cross(e1, e2)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-300)
+    along = e1 / np.linalg.norm(e1, axis=1, keepdims=True) + \
+        rng.normal(0, 1e-7, (n_rays, 1)) * nrm
+    d = np.where(kind == 3, along, rng.normal(size=(n_rays, 3)))
+    d[rng.uniform(size=n_rays) < 0.1, 0] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dist = np.linalg.norm(e1, axis=1) * 10.0 ** rng.uniform(-3, 2, n_rays)
+    o = tgt - d * dist[:, None]
+    mint = np.full(n_rays, 1e-3)
+    maxt = np.full(n_rays, 1e30)
+    mint[rng.uniform(size=n_rays) < 0.2] = -1e30
+    dead = rng.uniform(size=n_rays) < 0.1
+    mint[dead], maxt[dead] = 1.0, -1.0
+    short = ~dead & (rng.uniform(size=n_rays) < 0.1)
+    maxt[short] = dist[short] * rng.uniform(0.5, 1.5, short.sum())
+    tris = np.concatenate([p[:, 0].T, (p[:, 1] - p[:, 0]).T,
+                           (p[:, 2] - p[:, 0]).T])
+    rays = np.concatenate([o, d, mint[:, None], maxt[:, None]], 1).T
+    return (np.ascontiguousarray(tris, np.float32),
+            np.ascontiguousarray(rays, np.float32))
+
+
+def mt_pairs_parity(label, tris, rays):
+    """One mt_best launch per triangle, both modes: each pair's own (t,
+    id) against the plain version's, bit for bit."""
+    from tpuprt_torch.ops import mt_cuda
+    bad = pairs = hits = 0
+    for j in range(tris.shape[1]):
+        one = tris[:, j:j + 1].contiguous()
+        want = mt_cuda.mt_best_ref(rays, one)
+        for any_hit in (False, True):
+            got = mt_cuda.mt_best(rays, one, any_hit=any_hit)
+            bad += int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+        pairs += rays.shape[1]
+        hits += int((want[1] >= 0).sum())
+    emit(phase="parity", kernel="mt_best", set=label, mode="per pair",
+         pairs=pairs, hits=hits, differ=bad)
+    if bad:
+        raise AssertionError(f"{label}: {bad} pairs differ")
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """module.name replaced by fn while the block runs."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def capture_rays(scene, opts, device, module, name, at):
+    """The packed rays of one render's calls of the kernel wrapper
+    module.name (rays its argument number `at`), as {any_hit: rays of the
+    call with the most rays that have a non-empty window} (the first passes
+    cover the sky, where no shadow ray is traced). Not a main-path run: the
+    counts are reset before that."""
+    from tpuprt_torch import render as R
+    got = {}
+
+    def spy(*a, **kw):
+        rays, any_hit = a[at], kw.get("any_hit", False)
+        live = int((rays[6] <= rays[7]).sum())
+        if live > got.get(any_hit, (-1, None))[0]:
+            got[any_hit] = (live, rays.clone())
+        return real(*a, **kw)
+    with patched(module, name, spy) as real:
+        R.render(scene, opts, device=device)
+    return {k: v[1] for k, v in got.items()}
 
 
 def config2_none_text():
@@ -443,10 +605,11 @@ def render_path(label, scene, opts, device, need, exr=None):
     return rgb, launches, first_s, wall
 
 
-def profile_render(label, scene, opts, device):
+def profile_render(label, scene, opts, device, **extra):
     """One more render under torch.profiler: device time by kernel name
     (top 12), each traversal kernel's time, and the device's idle share of
-    the render's wall time (one stream, so kernels do not overlap)."""
+    the render's wall time (one stream, so kernels do not overlap). Emits
+    and returns that line, with the fields `extra`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tpuprt_torch import render as R
@@ -466,11 +629,258 @@ def profile_render(label, scene, opts, device):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     trav = {name: sum(v for k, v in kernels.items() if name + "_kernel" in k)
             for name in REPLACES}
-    emit(phase="profile", scene=label, wall_ms=wall * 1e3,
-         device_busy_ms=busy, device_idle_share=1.0 - busy / (wall * 1e3),
-         traversal_ms=trav,
-         traversal_share_of_busy=sum(trav.values()) / max(busy, 1e-9),
-         n_device_ops=len(kernels), top_ms=[[k[:80], v] for k, v in top])
+    r = dict(phase="profile", scene=label, **extra, wall_ms=wall * 1e3,
+             device_busy_ms=busy,
+             device_idle_share=1.0 - busy / (wall * 1e3), traversal_ms=trav,
+             traversal_share_of_busy=sum(trav.values()) / max(busy, 1e-9),
+             n_device_ops=len(kernels), top_ms=[[k[:80], v] for k, v in top])
+    emit(**r)
+    return r
+
+
+# The C interfaces of the earlier mt_best.cu and bvh_rows.cu (commit
+# 5d4361e), as parameter types in order: the sources that --old times
+# against the checkout's. A source with another interface is refused,
+# never called.
+OLD_INTERFACES = {
+    "mt_best.cu": ("mt_best_launch", "const float*, int, const float*, int, "
+                   "float*, int*, void*"),
+    "bvh_rows.cu": ("bvh_instanced_launch", "const float*, const int*, "
+                    "const int*, const int*, const int*, const float*, "
+                    "const float*, int, int, const float*, int, int, float*, "
+                    "int*, int*, void*")}
+
+
+def c_interface(path, name):
+    """The parameter types of the C function `name` in the source at
+    `path`, as OLD_INTERFACES writes them, or None."""
+    import re
+    with open(path) as f:
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", f.read())
+    return m and ", ".join(" ".join(p.split()[:-1])
+                           for p in m.group(1).split(","))
+
+
+def bind_old(old_dir, src):
+    """The launch function of OLD_INTERFACES[src] in old_dir/src, built
+    with the port's nvcc flags and bound through ctypes; raises unless its
+    parameter types are the listed ones."""
+    import ctypes
+    from tpuprt_torch.ops import bvh_cuda
+    name, want = OLD_INTERFACES[src]
+    path = os.path.join(old_dir, src)
+    got = c_interface(path, name)
+    if got != want:
+        raise SystemExit(f"{path}: {name}({got}) is not the interface "
+                         f"--old knows ({want})")
+    return bvh_cuda._bind(path, name, [
+        ctypes.c_void_p if t.endswith("*") else ctypes.c_int
+        for t in want.split(", ")])
+
+
+def ptxas_report(src):
+    """Registers, shared memory and spills of each kernel in `src`."""
+    import re
+    from tpuprt_torch.ops import bvh_cuda
+    cmd = [c for c in bvh_cuda._nvcc_cmd()
+           if c not in ("-shared", "-Xcompiler", "-fPIC")]
+    r = subprocess.run(cmd + ["-Xptxas", "-v", "-c", "-o", os.devnull, src],
+                       capture_output=True, text=True, check=True)
+    emit(phase="ptxas", source=os.path.relpath(src, ROOT), report=[
+        ln.strip() for ln in r.stderr.splitlines()
+        if re.search(r"registers|spill|Compiling entry", ln)])
+
+
+def in_turns(label, runs, reps, check):
+    """Each zero-argument callable of `runs` {name: fn} timed (`timed`) in
+    the turns old, new, new, old: "old" first and last, the others twice
+    in between. `check(last results)` -> {name: agrees}; every one must."""
+    import torch
+    news = [k for k in runs if k != "old"]
+    times, last = {k: [] for k in runs}, {}
+    for k in ["old"] + news + news + ["old"]:
+        ms, last[k] = timed(runs[k], reps)
+        times[k].append(ms)
+    torch.cuda.synchronize()
+    agree = check(last)
+    emit(phase="ab", set=label, ms=times, agree=agree)
+    if not all(agree.values()):
+        raise AssertionError(f"{label}: the trees disagree {agree}")
+
+
+def ab_main(old_dir, reps=5, renders=2):
+    """--old: the earlier mt_best and instanced walk (commit 5d4361e, the
+    sources in old_dir) against the checkout's, in one process on one card. Sets: config2/none's
+    camera and random rays and every 8th of config4_big's camera rays
+    (nearest), config4_big/none's busiest shadow batch (the earlier
+    nearest pass against any hit), each through the earlier kernel in lane
+    order (its front end), the new kernel in lane order ("unsorted", the front end's
+    for nearest calls) and in mt_cuda.ray_order with the sort and
+    un-permute timed ("sorted", the front end's for any-hit calls); the
+    rocks' camera rays (nearest) and the rocks render's busiest shadow
+    batch (any hit) through both instanced walks in lane order. Nearest
+    results must be equal bit for bit, any-hit masks equal. Then renders of
+    config4_big/none, config2/none and the rocks with each tree's kernels
+    and front end in place: in the same turns, `renders` timed renders and
+    one under the profiler each (host wall, device time of the swapped
+    kernel)."""
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch.scene.data import to_device
+    from tpuprt_torch.scene.parser import load_scene, load_scene_string
+    device = "cuda"
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(5) as ex:
+        old = [ex.submit(bind_old, old_dir, s)
+               for s in ("mt_best.cu", "bvh_rows.cu")]
+        new = [ex.submit(bvh_cuda.build, s) for s in (
+            mt_cuda.MT_SRC, bvh_cuda.ROWS_SRC, bvh_cuda.KERNEL_SRC)]
+        old_mt, old_inst = (f.result() for f in old)
+        for f in new:
+            f.result()
+    emit(phase="build", old=old_dir, seconds=time.perf_counter() - t0)
+    for src in (os.path.join(old_dir, "mt_best.cu"),
+                os.path.join(old_dir, "bvh_rows.cu"), mt_cuda.MT_SRC,
+                bvh_cuda.ROWS_SRC):
+        ptxas_report(src)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def old_mt_best(rays, tris, any_hit=False):
+        # The earlier kernel has no any-hit mode: its nearest hit gives the
+        # mask.
+        n = rays.shape[1]
+        t = torch.empty(n, dtype=torch.float32, device=device)
+        ids = torch.empty(n, dtype=torch.int32, device=device)
+        assert old_mt(rays.data_ptr(), n, tris.data_ptr(), tris.shape[1],
+                      t.data_ptr(), ids.data_ptr(), stream()) == 0
+        return t, ids
+
+    def old_instanced(nodes, e_block, e_inst, e_start, e_stop, e_bbox, w2o12,
+                      rays, *, cap, top, any_hit=False):
+        n = rays.shape[1]
+        out = [torch.empty(n, dtype=dt, device=device)
+               for dt in (torch.float32, torch.int32, torch.int32)]
+        assert old_inst(nodes.data_ptr(), e_block.data_ptr(),
+                        e_inst.data_ptr(), e_start.data_ptr(),
+                        e_stop.data_ptr(), e_bbox.data_ptr(),
+                        w2o12.data_ptr(), e_block.shape[0], cap,
+                        rays.data_ptr(), n, int(any_hit),
+                        *(x.data_ptr() for x in out), stream()) == 0
+        return tuple(out)
+
+    def lane_order(box, o, d, mint, maxt):
+        return torch.arange(len(o), device=device)
+    lane = (mt_cuda, "ray_order", lane_order)
+
+    # Each tree's kernels in place: {name: [(module, attribute, value)]}.
+    # The earlier front end passed every ray in lane order.
+    brute = {"old": [(mt_cuda, "mt_best", old_mt_best), lane], "new": []}
+    inst_v = {"old": [(bvh_cuda, "traverse_instanced", old_instanced)],
+              "new": []}
+
+    def swapped(patches):
+        stack = contextlib.ExitStack()
+        for p in patches:
+            stack.enter_context(patched(*p))
+        return stack
+
+    def same(exact):
+        def check(res):
+            ref = res["old"]
+            return {k: all(bool(torch.equal(a, b)) for a, b in zip(ref, r))
+                    if exact else bool(torch.equal(ref[1] >= 0, r[1] >= 0))
+                    for k, r in res.items()}
+        return check
+
+    # mt_best's sets.
+    scene, opts = load_scene(SCENE)
+    opts = opts._replace(chunk_size=1 << 17, half_readback=True)
+    scene_d = to_device(scene, device)
+    cam = camera_rays(scene_d, opts, device)
+    c4_rays = cam[:, ::cam.shape[1] // MT_CONFIG4_RAYS].contiguous()
+    del cam
+    c4_tris = mt_cuda.pack_table(scene_d.triangles)
+    c4_box = (scene_d.world_bound_lo, scene_d.world_bound_hi)
+    none_scene = dataclasses.replace(scene, accel=None)
+    with patched(*lane):
+        shadow = capture_rays(none_scene, opts, device, mt_cuda, "mt_best",
+                              0)[True]
+    c2, c2_opts = load_scene_string(config2_none_text())
+    c2_opts = c2_opts._replace(chunk_size=1 << 17, half_readback=True)
+    c2_d = to_device(c2, device)
+    c2_tris = mt_cuda.pack_table(c2_d.triangles)
+    c2_box = (c2_d.world_bound_lo, c2_d.world_bound_hi)
+
+    def sorted_mt(rays, tris, box, any_hit):
+        order = mt_cuda.ray_order(box, rays[0:3].T, rays[3:6].T, rays[6],
+                                  rays[7])
+        return bvh_cuda.unsort(order, *mt_cuda.mt_best(
+            rays[:, order].contiguous(), tris, any_hit=any_hit))
+
+    for label, rays, tris, box, any_hit in (
+            ("config2/camera", camera_rays(c2_d, c2_opts, device), c2_tris,
+             c2_box, False),
+            ("config2/random", torch.from_numpy(random_rays(1 << 18, 4))
+             .to(device), c2_tris, c2_box, False),
+            ("config4_big/camera", c4_rays, c4_tris, c4_box, False),
+            (f"config4_big/shadow ({shadow.shape[1]} rays, "
+             f"{int((shadow[6] <= shadow[7]).sum())} live)", shadow, c4_tris,
+             c4_box, True)):
+        in_turns(f"mt_best {label}, {'any' if any_hit else 'nearest'}", {
+            "old": lambda: old_mt_best(rays, tris),
+            "sorted": lambda: sorted_mt(rays, tris, box, any_hit),
+            "unsorted": lambda: mt_cuda.mt_best(rays, tris,
+                                                any_hit=any_hit)},
+            reps, same(not any_hit))
+    del c4_rays, shadow, scene_d, c2_d
+
+    # The instanced walk's sets.
+    with open(SCENE) as f:
+        rocks, ropts = load_scene_string(rocks_scene_text(
+            f.read(), N_ROCKS, ROCK_SUBDIV, ROCK_SEED))
+    ropts = ropts._replace(chunk_size=1 << 17, half_readback=True)
+    rocks_d = to_device(rocks, device)
+    inst = rocks_d.instances
+    args = (inst.nodes, inst.entry_block, inst.entry_inst, inst.entry_start,
+            inst.entry_stop, inst.entry_bbox,
+            inst.inst_w2o[:, :3, :].reshape(inst.count, 12).contiguous())
+    rshadow = capture_rays(rocks, ropts, device, bvh_cuda,
+                           "traverse_instanced", 7)[True]
+    for label, rays, any_hit in (
+            ("rocks/camera", camera_rays(rocks_d, ropts, device), False),
+            (f"rocks/shadow ({rshadow.shape[1]} rays, "
+             f"{int((rshadow[6] <= rshadow[7]).sum())} live)", rshadow,
+             True)):
+        kw = dict(cap=inst.block_cap, top=inst.top_nodes, any_hit=any_hit)
+        in_turns(f"bvh_instanced {label}, {'any' if any_hit else 'nearest'}",
+                 {"old": lambda: old_instanced(*args, rays, **kw),
+                  "new": lambda: bvh_cuda.traverse_instanced(*args, rays,
+                                                             **kw)},
+                 reps, same(not any_hit))
+    del inst, rshadow, rocks_d, args
+
+    # Renders with each tree's kernels in place, in the same turns.
+    paths = (("config4_big/none", none_scene, opts, "mt_best", brute),
+             ("config2/none", c2, c2_opts, "mt_best", brute),
+             (f"rocks({N_ROCKS})", rocks, ropts, "bvh_instanced", inst_v))
+    for label, sc, op, kernel, variants in paths:
+        news = [k for k in variants if k != "old"]
+        walls = {k: [] for k in variants}
+        device_ms = {k: [] for k in variants}
+        for v in ["old"] + news + news + ["old"]:
+            with swapped(variants[v]):
+                for _ in range(renders):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    R.render(sc, op, device=device)
+                    walls[v].append(time.perf_counter() - t0)
+                prof = profile_render(label, sc, op, device, tree=v)
+            device_ms[v].append(prof["traversal_ms"][kernel])
+        emit(phase="ab_render", scene=label, kernel=kernel, walls_s=walls,
+             kernel_device_ms=device_ms)
 
 
 def main(argv=None):
@@ -480,6 +890,10 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more render of each scene: "
                     "device time by kernel and the device's idle share")
+    ap.add_argument("--old", metavar="DIR",
+                    help="instead of the smoke run, time the mt_best.cu and "
+                    "bvh_rows.cu of commit 5d4361e, in DIR, against the "
+                    "checkout's")
     args = ap.parse_args(argv)
 
     import torch
@@ -498,6 +912,10 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if args.old:
+        ab_main(args.old)
+        print(smi, flush=True)
+        return 0
 
     # 1. Build the kernel sources from the checkout, one nvcc each, at once.
     def build(src):
@@ -583,7 +1001,8 @@ def main(argv=None):
     # 6. The instanced walk vs its plain version on the rocks scene.
     t0 = time.perf_counter()
     with open(SCENE) as f:
-        text = rocks_scene_text(f.read(), N_ROCKS, ROCK_SUBDIV, ROCK_SEED)
+        base_text = f.read()
+    text = rocks_scene_text(base_text, N_ROCKS, ROCK_SUBDIV, ROCK_SEED)
     rocks, dup, ropts = rocks_scenes(text)
     inst = rocks.instances
     emit(phase="load", scene=f"rocks({N_ROCKS})",
@@ -595,13 +1014,19 @@ def main(argv=None):
          duplicated_nn=dup.accel.n_nodes)
     rocks_d = to_device(rocks, device)
     inst_d = rocks_d.instances
-    # Unsorted, as intersect_ids hands rays to the instanced walk.
+    # In lane order, as accel/instances.intersect hands rays to the walk.
     res["bvh_instanced"] += instanced_parity(
         "rocks/camera", inst_d, camera_rays(rocks_d, ropts, device))
     res["bvh_instanced"] += instanced_parity(
         "rocks/random", inst_d,
         torch.from_numpy(random_rays(1 << 18, 3)).to(device))
-    del rocks_d, inst_d
+    ties, _ = load_scene_string(rocks_scene_text(
+        base_text, N_ROCKS, ROCK_SUBDIV, ROCK_SEED, dup_every=DUP_EVERY))
+    ties_d = to_device(ties, device)
+    res["bvh_instanced"] += instanced_parity(
+        f"rocks_ties(+{N_ROCKS // DUP_EVERY})/camera", ties_d.instances,
+        camera_rays(ties_d, ropts, device), exact=True)
+    del rocks_d, inst_d, ties, ties_d
 
     # 7. Main path, instancing: the rocks scene rendered through the tile
     # and instanced walks, against the same rocks duplicated.
@@ -627,7 +1052,8 @@ def main(argv=None):
         profile_render(f"rocks({N_ROCKS})", rocks, ropts, device)
     del rocks, dup
 
-    # 8. mt_best vs its plain version: config2/none and config4_big.
+    # 8. mt_best vs its plain version: config2/none, config4_big and the
+    # adversarial set.
     t0 = time.perf_counter()
     c2, c2_opts = load_scene_string(config2_none_text())
     emit(phase="load", scene="config2/none", seconds=time.perf_counter() - t0,
@@ -641,11 +1067,14 @@ def main(argv=None):
     res["mt_best"] += mt_parity(
         "config2/random", tris,
         torch.from_numpy(random_rays(1 << 18, 4)).to(device))
-    res["mt_best"] += mt_parity(
-        "config4_big/camera",
-        mt_cuda.pack_table(to_device(scene.triangles, device)), c4_rays,
-        reps=3)
-    del c2_d, tris, c4_rays
+    c4_tris = mt_cuda.pack_table(to_device(scene.triangles, device))
+    res["mt_best"] += mt_parity("config4_big/camera", c4_tris, c4_rays,
+                                reps=3, modes=(False,))
+    adv_tris, adv_rays = (torch.from_numpy(a).to(device)
+                          for a in adversarial_mt_set(5))
+    res["mt_best"] += mt_parity("adversarial", adv_tris, adv_rays)
+    mt_pairs_parity("adversarial", adv_tris, adv_rays)
+    del c2_d, tris, c4_rays, adv_tris, adv_rays
 
     # 9. Main path, no accelerator: config2/none at the file's settings
     # (128x128 x 32 spp) with bench.py's pool.
@@ -661,12 +1090,15 @@ def main(argv=None):
          samples_per_s=c2_opts.xres * c2_opts.yres *
          c2_opts.sampler.pixelsamples / wall)
     assert rel < BAND2_REL and mean < BAND2_MEAN, (rel, mean)
+    if args.profile:
+        profile_render("config2/none", c2, c2_opts, device)
 
     # 10. Main path, no accelerator, full width: config4_big with every
     # camera and shadow ray against all 99,458 triangles.
     none_scene = dataclasses.replace(scene, accel=None)
     rgb, launches["config4_big/none"], first_s, wall = render_path(
-        "config4_big/none", none_scene, opts, device, ["mt_best"])
+        "config4_big/none", none_scene, opts, device,
+        ["mt_best", "mt_best_any"])
     rel, mean = band(rgb, ref)
     emit(phase="render", scene="config4_big/none", shape=list(rgb.shape),
          spp=opts.sampler.pixelsamples, launches=launches["config4_big/none"],
@@ -676,6 +1108,13 @@ def main(argv=None):
     assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
     if args.profile:
         profile_render("config4_big/none", none_scene, opts, device)
+    # The render's own shadow batch (three fused any-hit segments of 2^17
+    # lanes) through mt_best in any-hit mode.
+    shadow = capture_rays(none_scene, opts, device, mt_cuda, "mt_best",
+                          0)[True]
+    res["mt_best"] += mt_parity("config4_big/shadow", c4_tris, shadow,
+                                reps=3, modes=(True,), plain_reps=1)
+    del shadow, c4_tris
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -686,13 +1125,21 @@ def main(argv=None):
     for name, rs in res.items():
         # The camera rays, nearest; mt_best on config4_big's, the shape of
         # its main path at full width.
-        timed_on = rs[-1] if name == "mt_best" else rs[0]
+        timed_on = rs[0]
+        if name == "mt_best":
+            timed_on = next(r for r in rs if r["set"] == "config4_big/camera")
         src = source[name]
         kernels.append(dict(
             name=name, route="cuda", source=os.path.relpath(src, ROOT),
             replaces=REPLACES[name], also_replaces=ALSO_REPLACES.get(name),
             launches=launches[path_of[name]][name],
-            max_abs_err=max(r["max_abs_err"] for r in rs),
+            launches_any_hit=launches[path_of[name]].get(name + "_any"),
+            # The instanced walk's any-hit result may be another hit than
+            # the plain version's (its entries come in another order): only
+            # its mask is held there.
+            max_abs_err=max(r["max_abs_err"] for r in rs
+                            if r["mode"] == "nearest" or
+                            name != "bvh_instanced"),
             ms=timed_on["ms"], plain_ms=timed_on["plain_ms"],
             bound_ms=timed_on["bound_ms"], bound_by=timed_on["bound_by"],
             library_ms=None,
@@ -700,7 +1147,8 @@ def main(argv=None):
             launches_on=path_of[name],
             parity=[{k: r[k] for k in ("set", "mode", "hit_mask_mismatch",
                                        "id_mismatch", "t_rel_max", "ms",
-                                       "plain_ms", "bound_ms")}
+                                       "plain_ms", "bound_ms",
+                                       "fmad_floor_ms")}
                     for r in rs]))
     emit(kernels=kernels,
          library_note="no PyTorch call computes a BVH walk or a nearest "

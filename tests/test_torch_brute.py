@@ -7,6 +7,7 @@ one-sided disk area light) with Accelerator "none", at 16x16 x 2 spp.
   route (jnp all pairs) and through its Pallas route (mt_pallas in
   interpret mode, forced as test_pallas_integration forces it), and
   hit_geometry agrees at the hits (quadric and triangle alike).
+- occluded() (mt_best's any-hit mode) gives tpuprt's shadow mask.
 - The whole render matches tpuprt.render.
 - The accelerator policy, and what the slice does not cover raises.
 """
@@ -106,6 +107,31 @@ def test_intersect_ids_match_per_ray(scenes, route, monkeypatch):
     assert np.mean(rel <= 1e-6) >= 0.99
 
 
+def test_occluded_matches_tpuprt(scenes, monkeypatch):
+    """occluded() sends the triangles through mt_best's any-hit mode and
+    gives tpuprt's shadow mask, which is also the nearest pass's; every
+    other ray ends short of its hit."""
+    jscene, jopts, tscene, _ = scenes
+    o, d, mint, maxt = camera_rays(jscene, jopts)
+    maxt = np.where(np.arange(len(maxt)) % 2 == 0, maxt, 2.0).astype(
+        np.float32)
+    modes = []
+    real = mt_cuda.mt_best
+    monkeypatch.setattr(mt_cuda, "mt_best",
+                        lambda rays, tris, any_hit=False:
+                        modes.append(any_hit) or
+                        real(rays, tris, any_hit=any_hit))
+    args = [torch.from_numpy(x) for x in (o, d, mint, maxt)]
+    occ = tisect.occluded(tscene, *args)
+    assert modes == [True]
+    want = np.asarray(jisect.occluded(jscene, *map(jnp.asarray,
+                                                   (o, d, mint, maxt))))
+    np.testing.assert_array_equal(occ.numpy(), want)
+    assert 100 < want.sum() < len(want) - 100
+    np.testing.assert_array_equal(
+        tisect.intersect_ids(tscene, *args)[2].numpy(), want)
+
+
 def test_hit_geometry_matches_per_ray(scenes):
     jscene, jopts, tscene, _ = scenes
     o, d, mint, maxt = camera_rays(jscene, jopts)
@@ -147,8 +173,9 @@ def test_render_matches_tpuprt(scenes, monkeypatch):
     seen = []
     real = mt_cuda.mt_best
     monkeypatch.setattr(mt_cuda, "mt_best",
-                        lambda rays, tris: seen.append(tris.data_ptr()) or
-                        real(rays, tris))
+                        lambda rays, tris, any_hit=False:
+                        seen.append(tris.data_ptr()) or
+                        real(rays, tris, any_hit=any_hit))
     jrgb, jalpha = jax_render.render(jscene, jopts)
     trgb, talpha = torch_render.render(tscene, topts, device="cpu")
     assert trgb.shape == (RES, RES, 3) and np.isfinite(trgb).all()

@@ -6,8 +6,12 @@ mirrored and rock 3 scaled non-uniformly, at 16x16 x 2 spp. On the CPU the
 port runs its plain walks; tpuprt runs its Pallas instanced kernel in
 interpret mode and its jnp walk for the main BVH.
 
-- The instance table and the BVH rows equal tpuprt's (through the bridge).
+- The instance table and the BVH rows equal tpuprt's (through the bridge,
+  which builds the port's top-level BVH over the entries too).
 - traverse_instanced_ref matches bvh_pallas.traverse_instanced.
+- The top-level BVH holds every entry once inside nested boxes, and a walk
+  of the entries in its order (or backwards) with the kernel's tie rule
+  gives the plain version's result where repeated instances tie.
 - intersect_ids and hit_geometry per ray, and the whole render, match.
 - What the slice does not cover raises NotImplementedError; render()
   without a device asks for the card.
@@ -30,6 +34,7 @@ from tpuprt.ops import bvh_pallas
 from tpuprt.samplers import samplers as jsmp
 from tpuprt.scene.parser import load_scene_string as jax_load
 from tpuprt_torch import render as torch_render
+from tpuprt_torch.accel import instances as inst_mod
 from tpuprt_torch.accel import intersect as tisect
 from tpuprt_torch.core import transform as tf
 from tpuprt_torch.ops import bvh_cuda
@@ -84,6 +89,7 @@ def test_instance_tables_equal_tpuprt(scenes):
     assert inst.inst_sign.tolist() == [-1.0] + [1.0] * 5
     assert tscene.triangles.count == 29 * 29 * 2
     t = from_numpy_tables(numpy_tables(jscene), "cpu")
+    assert tscene.instances.top_nodes.shape == (1, 16)
     assert_tables_equal(tscene.instances, t.instances, "instances")
     assert_tables_equal(tscene.accel, t.accel, "accel")
     assert torch.equal(tscene.world_bound_lo, t.world_bound_lo)
@@ -277,3 +283,118 @@ def test_render_defaults_to_the_card(scenes, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_render.render(tscene, topts)
+
+
+def top_children(top, n):
+    """Child node ids of interior node n of a skip-link table."""
+    skip = top[:, 6].long()
+    kids, c = [], n + 1
+    while c < int(skip[n]):
+        kids.append(c)
+        c = int(skip[c])
+    return kids
+
+
+@pytest.mark.parametrize("n_boxes", [6, 500])
+def test_top_level_bvh_holds_every_entry_once(n_boxes):
+    """build_top's table: every entry in exactly one leaf slot, each node's
+    box containing its children's and its entries' boxes."""
+    rng = np.random.default_rng(n_boxes)
+    lo = rng.uniform(-1, 1, (n_boxes, 3)).astype(np.float32)
+    box = np.concatenate([lo, lo + rng.uniform(0, 0.1, (n_boxes, 3)),
+                          np.zeros((n_boxes, 2))], 1).astype(np.float32)
+    top = torch.from_numpy(inst_mod.build_top(box))
+    assert top.shape[1] == inst_mod.TOP_COLS
+    nprims = top[:, 7].long()
+    seen = torch.cat([top[n, 8:8 + int(nprims[n])] for n in
+                      range(top.shape[0]) if nprims[n] > 0]).long()
+    assert sorted(seen.tolist()) == list(range(n_boxes))
+    assert bool((top[nprims == 0, 8:] == -1).all())
+    b = torch.from_numpy(box)
+    for n in range(top.shape[0]):
+        inner = b[top[n, 8:8 + int(nprims[n])].long()] if nprims[n] > 0 \
+            else top[top_children(top, n)]
+        assert len(inner) > 0
+        assert bool((top[n, 0:3] <= inner[:, 0:3]).all())
+        assert bool((top[n, 3:6] >= inner[:, 3:6]).all())
+    if n_boxes > 8:
+        assert top.shape[0] > 1 and int(top[0, 6]) == top.shape[0]
+
+
+def ordered_walk(ti, rays, order):
+    """The instanced kernel's nearest walk in plain torch, visiting the
+    entries in `order`: each entry's box against the window clipped at the
+    best so far, then its block walked with that best as the limit, and at
+    exactly the best t only when the entry is earlier than the best's
+    (bvh_rows.cu eq_first). Returns (t, id, inst)."""
+    n = rays.shape[1]
+    o, d, mint, maxt = rays[0:3].T, rays[3:6].T, rays[6], rays[7]
+    inv = bvh_cuda._safe_inv(d)
+    w2o12 = ti.inst_w2o[:, :3, :].reshape(ti.count, 12)
+    best_t = torch.full((n,), 1e30)
+    best_id = torch.full((n,), -1, dtype=torch.int32)
+    best_e = torch.full((n,), ti.n_entries, dtype=torch.int64)
+    for e in order:
+        window = torch.minimum(maxt, best_t)
+        on = (mint <= maxt) & bvh_cuda._slab_hit(
+            ti.entry_bbox[e], o, inv, mint, window * (1.0 + 1e-6))
+        k = on.nonzero()[:, 0]
+        eq = (best_id[k] >= 0) & (e < best_e[k])
+        limit = torch.where(eq, torch.nextafter(best_t[k], torch.tensor(
+            np.inf, dtype=torch.float32)), best_t[k])
+        m = w2o12[ti.entry_inst[e].long()].expand(len(k), 12)
+        c = [[m[:, 4 * i + j] for j in range(4)] for i in range(3)]
+        oo = tf.rows_apply_vector(c, o[k]) + torch.stack(
+            [c[0][3], c[1][3], c[2][3]], dim=-1)
+        od = tf.rows_apply_vector(c, d[k])
+        lane = torch.ones(len(k), dtype=torch.int64)
+        t, ids, _, _ = bvh_cuda._walk_rows(
+            ti.nodes, oo, od, mint[k], torch.minimum(maxt[k], limit),
+            lane * int(ti.entry_start[e]), lane * int(ti.entry_stop[e]),
+            lane * int(ti.entry_block[e]) * ti.block_cap, False)
+        took = ids >= 0
+        kk = k[took]
+        best_t[kk], best_id[kk], best_e[kk] = t[took], ids[took], e
+    hit = best_id >= 0
+    inst = torch.where(hit, ti.entry_inst[best_e.clamp(max=ti.n_entries - 1)],
+                       -1)
+    return best_t, best_id, inst
+
+
+@pytest.mark.parametrize("order", ["top-level", "reversed"])
+def test_out_of_order_walk_keeps_the_earliest_entry(order):
+    """Rocks with every other instance repeated under the same transform
+    (exact ties between entries): visiting the entries in the top-level
+    BVH's leaf order, or backwards, with the kernel's tie rule gives the
+    plain version's t, ids and instances on every ray; the front end's call
+    gives them too."""
+    text = rocks_scene_text(rocks_text().split("ObjectBegin")[0] +
+                            "WorldEnd\n", 6, 1, 0, dup_every=2)
+    scene, _ = load_scene_string(text)
+    ti = scene.instances
+    assert (ti.count, ti.n_entries) == (9, 9)
+    rng = np.random.default_rng(11)
+    n = 2048
+    org = rng.uniform(-1.2, 1.2, (n, 3))
+    org[:, 1] = rng.uniform(0.3, 1.5, n)
+    rays = torch.from_numpy(rays_at_rocks(ti, org, n, 12))
+    w2o12 = ti.inst_w2o[:, :3, :].reshape(ti.count, 12).contiguous()
+    want = bvh_cuda.traverse_instanced_ref(
+        ti.nodes, ti.entry_block, ti.entry_inst, ti.entry_start,
+        ti.entry_stop, ti.entry_bbox, w2o12, rays, cap=ti.block_cap)
+    hit = want[1] >= 0
+    # The repeats (entries 6-8) never win: their originals (0, 2, 4) tie.
+    assert int(hit.sum()) > 500 and set(want[2][hit].tolist()) <= \
+        {0, 1, 2, 3, 4, 5}
+    top = ti.top_nodes
+    leaves = [int(e) for row in top for e in row[8:8 + int(row[7])]]
+    assert sorted(leaves) == list(range(9))
+    got = ordered_walk(ti, rays, leaves if order == "top-level" else
+                       list(range(9))[::-1])
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    o, d, mint, maxt = rays[0:3].T, rays[3:6].T, rays[6], rays[7]
+    t, code, h = inst_mod.intersect(ti, o, d, mint, maxt)
+    assert torch.equal(h, hit)
+    assert torch.equal(code[h], (want[2] * ti.n_tris + want[1])[hit])
+    assert torch.equal(t[h], want[0][hit])

@@ -8,6 +8,10 @@ Traversal (ops/bvh_cuda.traverse_instanced) moves each ray into the
 instance's object space with its direction unnormalized, so t stays the
 world t and instanced hits compare directly with the main aggregate's.
 
+A top-level BVH over the traversal entries' world boxes (build_top) lets
+the kernel visit only the entries near a ray; the entry tables keep their
+order, which defines the result (the earliest entry wins at equal t).
+
 Global prim id of an instanced hit: NQ + NT + inst * n_tris + proto_tri,
 so integrator signatures are unchanged.
 """
@@ -24,10 +28,25 @@ from .bvh_build import build_rows, pad_rows
 
 _BIG = 1e30
 BLOCK_CAP = 2048
+TOP_COLS = 16
 
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def build_top(entry_bbox):
+    """Top-level BVH over E entry boxes f32[E, >=6] (lo xyz, hi xyz): the
+    native builder's tree with the boxes as AABB-only prims, in skip-link
+    rows f32[NN, TOP_COLS] = [lo xyz, hi xyz, skip, nprims, 8 entry ids
+    (leaves; -1 in unused slots and in interior rows)], as numpy."""
+    box = np.asarray(entry_bbox, np.float32)
+    rows, prim_ids, nn = build_rows(box[:, 0:3], box[:, 3:6], len(box),
+                                    np.zeros((0, 9), np.float32))
+    top = np.empty((nn, TOP_COLS), np.float32)
+    top[:, 0:8] = rows[:, 0:8]
+    top[:, 8:16] = prim_ids
+    return top
 
 
 def build_instances(protos, instances) -> InstanceTable:
@@ -130,7 +149,7 @@ def build_instances(protos, instances) -> InstanceTable:
         inst_o2w=_t(np.stack(o2w_list)), inst_w2o=_t(np.stack(w2o_list)),
         entry_block=i32(e_blk), entry_inst=i32(e_inst),
         entry_start=i32(e_start), entry_stop=i32(e_stop),
-        entry_bbox=_t(np.stack(e_bbox)),
+        entry_bbox=_t(np.stack(e_bbox)), top_nodes=_t(build_top(e_bbox)),
         bounds_lo=_t(lo_all), bounds_hi=_t(hi_all),
         tri_emissive=_t(np.zeros(t_ofs, bool)),
         inst_area_light=i32(np.full(len(instances), -1)),
@@ -140,13 +159,16 @@ def build_instances(protos, instances) -> InstanceTable:
 
 def intersect(inst: InstanceTable, o, d, mint, maxt, any_hit=False):
     """(t, code, hit): code = inst * n_tris + proto_tri for hits, -1 else.
-    Callers recompute the winner's t through recompute_t."""
+    The rays go to the walk in lane order: sorting them (bvh_cuda.sort_key
+    over the instances' bounds) did not make the walk faster on the card
+    and costs about as much as the walk (PERF.md). Callers recompute the
+    winner's t through recompute_t."""
     rays = torch.cat([o.T, d.T, mint[None], maxt[None]], dim=0).contiguous()
     w2o12 = inst.inst_w2o[:, :3, :].reshape(inst.count, 12).contiguous()
     t, tri, ii = bvh_cuda.traverse_instanced(
         inst.nodes, inst.entry_block, inst.entry_inst, inst.entry_start,
         inst.entry_stop, inst.entry_bbox, w2o12, rays, cap=inst.block_cap,
-        any_hit=any_hit)
+        top=inst.top_nodes, any_hit=any_hit)
     hit = (tri >= 0) & (ii >= 0)
     code = torch.where(hit, ii * inst.n_tris + tri, -1)
     return torch.where(hit, t, _BIG), code, hit

@@ -8,9 +8,10 @@ on an instanced prototype triangle (accel/instances.py).
 
 Without an accelerator (scene.accel None) every ray is tested against
 every primitive: the quadrics by plain torch all pairs, the triangles by
-the dense kernel (ops/mt_cuda.py), whatever their count. tpuprt's
-BRUTE_UNROLL_MAX, PALLAS_MIN_TRIS and force_pallas choose among TPU
-formulations with the same results; the port has one.
+the dense kernel (ops/mt_cuda.py), whatever their count, in its any-hit
+mode for shadow rays. tpuprt's BRUTE_UNROLL_MAX, PALLAS_MIN_TRIS and
+force_pallas choose among TPU formulations with the same results; the port
+has one.
 """
 from __future__ import annotations
 
@@ -36,11 +37,13 @@ def _nq(scene: SceneData) -> int:
     return scene.quadrics.count if scene.quadrics is not None else 0
 
 
-def _brute_force(scene: SceneData, o, d, mint, maxt):
+def _brute_force(scene: SceneData, o, d, mint, maxt, any_hit=False):
     """Nearest hit over all primitives (tpuprt/accel/intersect.py:89-128,
     its non-unrolled form): the quadrics first, then the triangles replace
     them only where strictly nearer, so a quadric wins a tie; among
-    triangles the lowest index wins. Returns (t, prim_id, hit)."""
+    triangles the lowest index wins. Returns (t, prim_id, hit). With
+    any_hit the triangle kernel stops at each ray's lowest-index hit: hit is
+    the same mask, t and prim_id need not be the nearest."""
     n = o.shape[0]
     nq, nt = _nq(scene), scene.triangles.count
     best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
@@ -55,7 +58,9 @@ def _brute_force(scene: SceneData, o, d, mint, maxt):
         tris = scene.tris_packed
         if tris is None:
             tris = mt_cuda.pack_table(scene.triangles)
-        t_tri, ti, _ = mt_cuda.intersect_packed(tris, o, d, mint, maxt)
+        t_tri, ti, _ = mt_cuda.intersect_packed(
+            tris, (scene.world_bound_lo, scene.world_bound_hi), o, d, mint,
+            maxt, any_hit=any_hit)
         upd = t_tri < best_t
         best_t = torch.where(upd, t_tri, best_t)
         best_id = torch.where(upd, ti + nq, best_id)
@@ -64,9 +69,11 @@ def _brute_force(scene: SceneData, o, d, mint, maxt):
 
 def _main_intersect(scene: SceneData, o, d, mint, maxt, any_hit=False):
     if scene.accel is None:
-        # Brute force resolves every ray to its nearest hit; an any-hit
-        # caller reads the mask (tpuprt/accel/intersect.py:187-188).
-        return _brute_force(scene, o, d, mint, maxt)
+        # The quadrics resolve their nearest hit, the triangle kernel stops
+        # at a first hit for an any-hit caller, who reads only the mask
+        # (tpuprt/accel/intersect.py:187-188 reads tpuprt's nearest mask,
+        # the same booleans).
+        return _brute_force(scene, o, d, mint, maxt, any_hit=any_hit)
     return bvh_mod.intersect(scene, o, d, mint, maxt, any_hit=any_hit)
 
 

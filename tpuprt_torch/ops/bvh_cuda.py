@@ -69,8 +69,8 @@ def _rows_entry():
 
 def _instanced_entry():
     return _bind(ROWS_SRC, "bvh_instanced_launch",
-                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P,
-                  _P])
+                 [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+                  _P, _P])
 
 
 def _check_tensors(dev, *specs):
@@ -388,17 +388,19 @@ def traverse_rows_ref(nodes, rays, *, nn: int, any_hit: bool = False,
 
 def traverse_instanced(nodes, entry_block, entry_inst, entry_start,
                        entry_stop, entry_bbox, w2o12, rays, *, cap: int,
-                       any_hit: bool = False):
+                       top, any_hit: bool = False):
     """Nearest (or any) hit of packed rays f32[8,N] against an instanced
     aggregate: per entry e (an instance's prototype node block), a world
     bbox test, then the walk of proto-local node ids [entry_start[e],
     entry_stop[e]) at rows entry_block[e] * cap + (node - entry_start[e])
     of `nodes`, with the ray moved to object space by the instance's w2o12
-    row (the top 3 rows of w2o). Returns (t f32[N], proto_tri i32[N],
-    inst i32[N]), -1 = miss. CUDA tensors launch bvh_rows.cu's instanced
-    walk; CPU tensors run the plain version."""
+    row (the top 3 rows of w2o). Nearest: the least (t, entry). Returns
+    (t f32[N], proto_tri i32[N], inst i32[N]), -1 = miss. CUDA tensors
+    launch bvh_rows.cu's instanced walk, which visits the entries through
+    the top-level BVH `top` f32[NN_top,16] (accel/instances.build_top);
+    CPU tensors run the plain version, which does not need it."""
     i32, f32 = torch.int32, torch.float32
-    _check_tensors(rays.device, ("nodes", nodes, f32),
+    _check_tensors(rays.device, ("nodes", nodes, f32), ("top", top, f32),
                    ("entry_block", entry_block, i32),
                    ("entry_inst", entry_inst, i32),
                    ("entry_start", entry_start, i32),
@@ -411,11 +413,11 @@ def traverse_instanced(nodes, entry_block, entry_inst, entry_start,
             any(x.shape != (e,) for x in (entry_inst, entry_start,
                                          entry_stop)) or \
             entry_bbox.shape != (e, 8) or w2o12.dim() != 2 or \
-            w2o12.shape[1] != 12:
+            w2o12.shape[1] != 12 or top.dim() != 2 or top.shape[1] != 16:
         raise ValueError("instance tables must be f32[blocks*cap,128], "
-                         "i32[E] x 4, f32[E,8], f32[I,12]")
+                         "i32[E] x 4, f32[E,8], f32[I,12], f32[NN_top,16]")
     _check_rays(rays)
-    if not _on_card(rays, nodes):
+    if not _on_card(rays, nodes, top, entry_bbox, w2o12):
         return traverse_instanced_ref(
             nodes, entry_block, entry_inst, entry_start, entry_stop,
             entry_bbox, w2o12, rays, cap=cap, any_hit=any_hit)
@@ -424,11 +426,12 @@ def traverse_instanced(nodes, entry_block, entry_inst, entry_start,
     ids = torch.empty(n, dtype=i32, device=rays.device)
     inst = torch.empty(n, dtype=i32, device=rays.device)
     _launch("bvh_instanced", _instanced_entry(), nodes.data_ptr(),
-            entry_block.data_ptr(), entry_inst.data_ptr(),
-            entry_start.data_ptr(), entry_stop.data_ptr(),
-            entry_bbox.data_ptr(), w2o12.data_ptr(), e, cap,
-            rays.data_ptr(), n, int(any_hit), t.data_ptr(), ids.data_ptr(),
-            inst.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+            top.data_ptr(), top.shape[0], entry_block.data_ptr(),
+            entry_inst.data_ptr(), entry_start.data_ptr(),
+            entry_stop.data_ptr(), entry_bbox.data_ptr(), w2o12.data_ptr(),
+            cap, rays.data_ptr(), n, int(any_hit), t.data_ptr(),
+            ids.data_ptr(), inst.data_ptr(),
+            torch.cuda.current_stream(rays.device).cuda_stream)
     return t, ids, inst
 
 
@@ -444,11 +447,13 @@ def traverse_instanced_ref(nodes, entry_block, entry_inst, entry_start,
     3. per ray, the pair with the least (t, entry) among those that hit;
        any-hit takes the least entry.
 
-    That is the kernel's result: its walks run over entries in order with
-    the best so far, and the strict t < best_t update keeps the earliest
-    entry at equal t; clipping by an earlier entry's best only prunes hits
-    that could not win; an any-hit walk sees no best before its first hit.
-    Rays with an empty window (mint > maxt) test nothing, as in the kernel.
+    That defines the result. The kernel visits entries out of this order
+    (through its top-level BVH) with the best so far, and takes a hit at
+    equal t only from an earlier entry than the best's, so the earliest
+    entry wins at equal t; clipping by another entry's best only prunes
+    hits that could not win. An any-hit result may come from another entry
+    than the least: only its mask is the plain version's. Rays with an
+    empty window (mint > maxt) test nothing, as in the kernel.
 
     with_counts also returns dict(entry=, slab=, tri=, xform=): the
     entry-box, node-box and triangle tests and the rays moved to object
@@ -456,8 +461,9 @@ def traverse_instanced_ref(nodes, entry_block, entry_inst, entry_start,
     ray's final window [mint, min(maxt, t)], each walked within that
     window (no order of entries clips a walk further). Any hit: the
     entries whose box the ray meets up to its first hit, walked as the
-    kernel walks them. The kernel's O(E) loop also tests every other entry
-    box; the counts leave those tests out."""
+    kernel walks them. The kernel's top-level walk also tests node boxes
+    and the boxes of entries its window does not reach; the counts leave
+    those tests out."""
     n = rays.shape[1]
     dev = rays.device
     n_e = entry_block.shape[0]
@@ -526,14 +532,15 @@ def traverse_instanced_ref(nodes, entry_block, entry_inst, entry_start,
         xform=n_need)
 
 
-def sort_key(bvh, o, d):
+def sort_key(lo, hi, o, d):
     """Coherence sort key: direction octant (3 bits) then a 7-bit-per-axis
-    Morton code of the origin in the scene box (bvh_pallas.py:1242-1264),
-    in int64."""
+    Morton code of the origin in the box [lo, hi] (a BVH's, an instance
+    table's or a scene's bounds; bvh_pallas.py:1242-1264), in int64, below
+    2^30."""
     oct_ = ((d[:, 0] < 0).long() * 4 + (d[:, 1] < 0).long() * 2 +
             (d[:, 2] < 0).long())
-    ext = torch.clamp(bvh.bounds_hi - bvh.bounds_lo, min=1e-6)
-    q = torch.clamp((o - bvh.bounds_lo) / ext * 127.0, 0.0, 127.0).long()
+    ext = torch.clamp(hi - lo, min=1e-6)
+    q = torch.clamp((o - lo) / ext * 127.0, 0.0, 127.0).long()
 
     def spread(v):
         v = (v | (v << 16)) & 0x030000FF
@@ -555,6 +562,12 @@ def walked_only(bvh):
     return dataclasses.replace(bvh, nodes=None)
 
 
+def unsort(order, *xs):
+    """Per-ray results `xs` of rays taken in `order` back to ray order (one
+    scatter each)."""
+    return tuple(torch.empty_like(x).index_copy_(0, order, x) for x in xs)
+
+
 def intersect(bvh, o, d, mint, maxt, any_hit: bool = False,
               sort: bool = True):
     """Traversal front end: (t_raw, prim_id, hit). Rays go to the kernel in
@@ -564,7 +577,8 @@ def intersect(bvh, o, d, mint, maxt, any_hit: bool = False,
     rays8 = torch.cat([o, d, mint[:, None], maxt[:, None]], dim=1)
     order = None
     if sort:
-        order = torch.argsort(sort_key(bvh, o, d), stable=True)
+        order = torch.argsort(sort_key(bvh.bounds_lo, bvh.bounds_hi, o, d),
+                              stable=True)
         rays8 = rays8[order]
     rays = rays8.T.contiguous()
     if bvh.nodesT is not None:
@@ -574,6 +588,5 @@ def intersect(bvh, o, d, mint, maxt, any_hit: bool = False,
         t, ids = traverse_rows(bvh.nodes, rays, nn=bvh.n_nodes,
                                any_hit=any_hit)
     if order is not None:
-        t = torch.empty_like(t).index_copy_(0, order, t)
-        ids = torch.empty_like(ids).index_copy_(0, order, ids)
+        t, ids = unsort(order, t, ids)
     return t, ids, ids >= 0

@@ -26,24 +26,37 @@
 // first slot wins at equal t. Built with -fmad=false so every product and
 // sum rounds as the plain torch version's separate ops do.
 //
-// Instanced walk: each thread loops over the E entries (instance,
-// prototype block) in order: a world-bbox slab test against its current
-// window, the ray into object space by the instance's w2o rows (direction
-// not renormalized, so t stays the world t), the walk of the block's node
-// range at row entry_block * cap + (node - start), and the entry's
-// instance taken when t improved. All threads read the same entries, so
-// they are staged through shared memory a tile at a time.
+// Instanced walk: each thread walks a top-level BVH over the E entries
+// (instance, prototype block): skip-link rows f32[NN_top,16] = [lo xyz,
+// hi xyz, skip, nprims, 8 entry ids] (accel/instances.build_top), with
+// the same slab test and skip logic. At a leaf each listed entry's own
+// world box is tested against the current window; for an entry that
+// passes, the ray moves into object space by the instance's w2o rows
+// (direction not renormalized, so t stays the world t) and walks the
+// block's node range at row entry_block * cap + (node - start). Entries
+// are visited out of their table order, which defines the result
+// (the earliest entry wins at equal t), so a walk into entry e may also
+// take its first hit at exactly the best t when e is below the best's
+// entry (eq_first of walk_range); inside one entry the strict < in slot
+// order stays. The entry and instance of the best follow the walk's "hit
+// taken" flag. A node or entry box that holds a hit at the best t passes
+// the clip at best_t * (1 + 1e-6), and a node's box contains its
+// entries' boxes (the builder's min/max are exact; the slab test is
+// monotone in the box), so no hit that could win is pruned.
 //
-// What bounds it on this card. The row walk: divergent node fetches, as
-// in bvh_tiles.cu (each visit a dependent 512-byte row read; the rays of a
-// warp read different rows; the front end's ray sort keeps neighbours on
-// similar paths). The instanced walk: the O(E) entry loop. Every ray slab
-// tests all E entry boxes (1000 for the rocks scene, about 27 flops each),
-// whether or not it is near them; the walks behind the tests are short
-// (one 2048-row block per entry). Staging the entries in shared memory
-// makes the loop compute-bound instead of load-bound. A later version
-// should put a top-level BVH over the entry boxes and walk it instead.
+// What bounds it on this card. Both walks: divergent node fetches, as in
+// bvh_tiles.cu (each visit a dependent row read; the rays of a warp read
+// different rows; the main BVH's front end sorts the rays so that
+// neighbours take similar paths). The instanced walk visits O(log E)
+// top-level nodes and the few entries whose box meets the ray's window,
+// where the previous design slab-tested all E entry boxes for every ray;
+// its walks behind the tests are short (one 2048-row block per entry).
+// That halves the walk's device time in the rocks render (PERF.md). The
+// lanes of a warp may enter different entries' walks one after another,
+// which the previous design's lock-step entry order avoided, so incoherent
+// shadow rays gain less; sorting the rays did not pay.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,7 +64,7 @@ namespace {
 
 constexpr int kCols = 128;
 constexpr int kLeafK = 8;
-constexpr int kTile = 128;        // entries staged in shared memory at once
+constexpr int kTopCols = 16;
 constexpr float kBig = (float)1e30;
 constexpr float kTiny = (float)1e-12;
 constexpr float kClip = (float)(1.0 + 1e-6);
@@ -81,10 +94,13 @@ __device__ __forceinline__ bool slab(const Ray& r, float lox, float loy,
 }
 
 // Skip-link walk of preorder node ids [start, stop), node n stored at
-// rows[(n - start) * kCols]. Updates best_t / best_id in place.
-__device__ void walk_range(const float* __restrict__ rows, int start,
+// rows[(n - start) * kCols]. Updates best_t / best_id in place on a
+// strictly nearer hit; with eq_first also on the walk's first hit at
+// exactly best_t. Returns whether it took a hit.
+__device__ bool walk_range(const float* __restrict__ rows, int start,
                            int stop, const Ray& r, int any_hit,
-                           float& best_t, int& best_id) {
+                           float& best_t, int& best_id, bool eq_first) {
+  bool taken = false;
   int node = start;
   while (node < stop && !(any_hit && best_id >= 0)) {
     const float4* row =
@@ -120,18 +136,23 @@ __device__ void walk_range(const float* __restrict__ rows, int start,
         const float s2z = sx * e1y - sy * e1x;
         const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv;
         const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv;
+        const bool nearer = t < fminf(r.maxt, best_t) ||
+                            (eq_first && t == best_t && t < r.maxt);
         const bool valid = ok && b1 >= 0.0f && b2 >= 0.0f &&
-                           b1 + b2 <= 1.0f && t > r.mint &&
-                           t < fminf(r.maxt, best_t) && j < nprims &&
-                           pid >= 0 && !(any_hit && best_id >= 0);
-        if (valid && t < best_t) {
+                           b1 + b2 <= 1.0f && t > r.mint && nearer &&
+                           j < nprims && pid >= 0 &&
+                           !(any_hit && best_id >= 0);
+        if (valid) {
           best_t = t;
           best_id = pid;
+          taken = true;
+          eq_first = false;
         }
       }
     }
     node = (hit && nprims == 0) ? node + 1 : skip;
   }
+  return taken;
 }
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
@@ -153,57 +174,49 @@ bvh_rows_kernel(const float* __restrict__ rows,
   const Ray r = load_ray(rays, n, i);
   float best_t = kBig;
   int best_id = -1;
-  walk_range(rows, 0, nn, r, any_hit, best_t, best_id);
+  walk_range(rows, 0, nn, r, any_hit, best_t, best_id, false);
   t_out[i] = best_t;
   id_out[i] = best_id;
 }
 
 __global__ void __launch_bounds__(128)
 bvh_instanced_kernel(const float* __restrict__ rows,
+                     const float* __restrict__ top, int top_nn,
                      const int* __restrict__ e_block,
                      const int* __restrict__ e_inst,
                      const int* __restrict__ e_start,
                      const int* __restrict__ e_stop,
                      const float* __restrict__ e_bbox,
-                     const float* __restrict__ w2o12, int n_entries,
-                     int cap, const float* __restrict__ rays, int n,
-                     int any_hit, float* __restrict__ t_out,
-                     int* __restrict__ id_out, int* __restrict__ inst_out) {
-  __shared__ float s_bbox[kTile][6];
-  __shared__ float s_m[kTile][12];
-  __shared__ int s_int[kTile][4];  // block, inst, start, stop
-
+                     const float* __restrict__ w2o12, int cap,
+                     const float* __restrict__ rays, int n, int any_hit,
+                     float* __restrict__ t_out, int* __restrict__ id_out,
+                     int* __restrict__ inst_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  // Every thread stages entries; only live ones test them. A ray with an
-  // empty window (mint > maxt) hits nothing and tests nothing.
-  Ray w = load_ray(rays, n, min(i, n - 1));
-  const bool live = i < n && w.mint <= w.maxt;
+  if (i >= n) return;
+  const Ray w = load_ray(rays, n, i);
   float best_t = kBig;
-  int best_id = -1, best_inst = -1;
-
-  for (int e0 = 0; e0 < n_entries; e0 += kTile) {
-    const int m = min(kTile, n_entries - e0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      const int e = e0 + k;
-      const int inst = e_inst[e];
-#pragma unroll
-      for (int c = 0; c < 6; ++c) s_bbox[k][c] = e_bbox[(size_t)e * 8 + c];
-#pragma unroll
-      for (int c = 0; c < 12; ++c) s_m[k][c] = w2o12[(size_t)inst * 12 + c];
-      s_int[k][0] = e_block[e];
-      s_int[k][1] = inst;
-      s_int[k][2] = e_start[e];
-      s_int[k][3] = e_stop[e];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int k = 0; k < m; ++k) {
+  int best_id = -1, best_inst = -1, best_e = INT_MAX;
+  // A ray with an empty window (mint > maxt) hits nothing and tests
+  // nothing.
+  int node = w.mint <= w.maxt ? 0 : top_nn;
+  while (node < top_nn && !(any_hit && best_id >= 0)) {
+    const float* row = top + (size_t)node * kTopCols;
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+    const int skip = (int)b.z;
+    const int nprims = (int)b.w;
+    const bool hit = slab(w, a.x, a.y, a.z, a.w, b.x, b.y, best_t);
+    for (int j = 0; hit && j < nprims; ++j) {
       if (any_hit && best_id >= 0) break;
-      if (!slab(w, s_bbox[k][0], s_bbox[k][1], s_bbox[k][2], s_bbox[k][3],
-                s_bbox[k][4], s_bbox[k][5], best_t))
-        continue;
-      const float* mm = s_m[k];
+      const int e = (int)__ldg(row + 8 + j);
+      const float4* bb = reinterpret_cast<const float4*>(e_bbox) + 2 * e;
+      const float4 lo = __ldg(bb), hi = __ldg(bb + 1);
+      if (!slab(w, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, best_t)) continue;
+      const int inst = __ldg(e_inst + e);
+      const float4* m4 = reinterpret_cast<const float4*>(w2o12) + 3 * inst;
+      const float4 m0 = __ldg(m4), m1 = __ldg(m4 + 1), m2 = __ldg(m4 + 2);
+      const float mm[12] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y,
+                            m1.z, m1.w, m2.x, m2.y, m2.z, m2.w};
       Ray o;
       o.ox = mm[0] * w.ox + mm[1] * w.oy + mm[2] * w.oz + mm[3];
       o.oy = mm[4] * w.ox + mm[5] * w.oy + mm[6] * w.oz + mm[7];
@@ -214,19 +227,18 @@ bvh_instanced_kernel(const float* __restrict__ rows,
       o.ix = safe_inv(o.dx); o.iy = safe_inv(o.dy); o.iz = safe_inv(o.dz);
       o.mint = w.mint;
       o.maxt = w.maxt;
-      const float before = best_t;
-      const float* block =
-          rows + (size_t)s_int[k][0] * (size_t)cap * kCols;
-      walk_range(block, s_int[k][2], s_int[k][3], o, any_hit, best_t,
-                 best_id);
-      if (best_t < before) best_inst = s_int[k][1];
+      const float* block = rows + (size_t)__ldg(e_block + e) * cap * kCols;
+      if (walk_range(block, __ldg(e_start + e), __ldg(e_stop + e), o,
+                     any_hit, best_t, best_id, best_id >= 0 && e < best_e)) {
+        best_e = e;
+        best_inst = inst;
+      }
     }
+    node = (hit && nprims == 0) ? node + 1 : skip;
   }
-  if (i < n) {
-    t_out[i] = best_t;
-    id_out[i] = best_id;
-    inst_out[i] = best_inst;
-  }
+  t_out[i] = best_t;
+  id_out[i] = best_id;
+  inst_out[i] = best_inst;
 }
 
 }  // namespace
@@ -245,19 +257,20 @@ extern "C" int bvh_rows_launch(const float* rows, const float* rays, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bvh_instanced_launch(const float* rows, const int* e_block,
+extern "C" int bvh_instanced_launch(const float* rows, const float* top,
+                                    int top_nn, const int* e_block,
                                     const int* e_inst, const int* e_start,
                                     const int* e_stop, const float* e_bbox,
-                                    const float* w2o12, int n_entries,
-                                    int cap, const float* rays, int n,
-                                    int any_hit, float* t_out, int* id_out,
-                                    int* inst_out, void* stream) {
+                                    const float* w2o12, int cap,
+                                    const float* rays, int n, int any_hit,
+                                    float* t_out, int* id_out, int* inst_out,
+                                    void* stream) {
   if (n > 0) {
     const int block = 128;
     const int grid = (n + block - 1) / block;
     bvh_instanced_kernel<<<grid, block, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        rows, e_block, e_inst, e_start, e_stop, e_bbox, w2o12, n_entries,
+        rows, top, top_nn, e_block, e_inst, e_start, e_stop, e_bbox, w2o12,
         cap, rays, n, any_hit, t_out, id_out, inst_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,8 @@ node metadata) becomes a dict of its fields. Fields the port's tables do
 not have must be empty (no volumes, images or environment maps), and the
 accelerator must be a BVH or none (brute force); anything else raises
 NotImplementedError. The BVH's rows are padded to 128 columns, as the port
-stores them.
+stores them; an instance table gets the port's top-level BVH over its
+entries (accel/instances.build_top), which tpuprt's does not carry.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..accel.bvh_build import pad_rows
+from ..accel.instances import build_top
 from ..textures.graph import TexGraph, TexNodeMeta
 from . import data as D
 
@@ -45,6 +47,8 @@ def _build(cls, d: dict, device, where: str):
     extra = [k for k in extra if k not in _TPU_ONLY.get(cls, ())]
     if cls is D.BvhAccel:
         d = dict(d, nodes=pad_rows(d["nodes"]))
+    if cls is D.InstanceTable:
+        d = dict(d, top_nodes=build_top(d["entry_bbox"]))
     if extra:
         raise NotImplementedError(f"{where}: {sorted(extra)} not ported")
     kw = {}

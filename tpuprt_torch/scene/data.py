@@ -170,10 +170,11 @@ class InstanceTable:
     """Ray-transform instancing (pbrt-v1's InstancePrimitive,
     core/primitive.cpp:66-85): prototype triangle meshes stored once in
     object space, each with its own BLAS (rows as in BvhAccel.nodes, leaf
-    prim ids global prototype-triangle ids), and one transform per
-    instance. Built by accel/instances.build_instances. Instanced area
-    emitters are not ported: ``tri_emissive`` is all False and
-    ``inst_area_light`` all -1."""
+    prim ids global prototype-triangle ids), one transform per instance,
+    and a top-level BVH over the traversal entries. Built by
+    accel/instances.build_instances. Instanced area emitters are not
+    ported: ``tri_emissive`` is all False and ``inst_area_light`` all
+    -1."""
     verts: torch.Tensor        # f32[V,3] object space, all prototypes
     idx: torch.Tensor          # i32[T,3]
     uv: torch.Tensor           # f32[V,2]
@@ -190,6 +191,9 @@ class InstanceTable:
     entry_start: torch.Tensor  # i32[E] first proto-local node id of block
     entry_stop: torch.Tensor   # i32[E] one past the block's last node id
     entry_bbox: torch.Tensor   # f32[E,8] world bbox (lo3, hi3, pad2)
+    # Top-level BVH over the entry boxes (accel/instances.build_top):
+    # skip-link rows [lo3, hi3, skip, nprims, 8 entry ids].
+    top_nodes: torch.Tensor = None   # f32[NN_top, 16]
     bounds_lo: torch.Tensor = None   # f32[3] world bounds over instances
     bounds_hi: torch.Tensor = None
     inst_sign: torch.Tensor = None   # f32[I]: -1 where o2w is a mirror
