@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``tpuprt_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--exr PATH] [--profile]
-    python3 chip_smoke.py --old DIR
+    python3 chip_smoke.py --old DIR [--new-first]
 
 Phases, one JSON line each; any failure raises and exits nonzero:
 
@@ -13,7 +13,12 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    the tile walk and the row walk and through their plain torch versions
    on the card.
 3. parity  -- the 1M-triangle terrain (NN > 22000, the contract of the
-   TPU's chunked walks), 64K random rays, both kernels, both modes.
+   TPU's chunked walks), 64K random rays, both kernels, both modes; and
+   the row walk on a hand-built tree 40 levels deep (deep_tree), deeper
+   than the tile walk takes and than the row walk's stack keeps in local
+   memory (its scratch path), both modes; told a depth of 1, the row walk
+   must fail (understated_depth). The tile and row walks must equal their
+   plain versions bit for bit (t and ids) in both modes.
 4. render  -- config4_big at full size through load_scene -> render ->
    write_exr on the card (the tile walk); the kernel's launch count must be
    > 0, the image finite and inside a band around scenes/bench4.exr.
@@ -48,8 +53,8 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    real shadow batch (393K rays) through mt_best in any-hit mode against
    the plain version.
 
-Each parity line carries the kernel's and the plain version's times and
-the kernel's bound (the least time the card could take: the bytes it must
+Each parity line carries the kernel's and the plain version's times, the
+wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
 move over the memory rate, or the ray-box, ray-triangle and transform
 operations these rays need, counted by the plain version, over the f32
 rate; for the instanced walk, only the entries a ray's final window meets;
@@ -63,11 +68,11 @@ limit, the kernel table, and as the last line ``{"ok": true, "device":
 more render of config4_big, of the rocks scene, of config2/none and of
 config4_big without an accelerator (phase "profile").
 
-``--old DIR`` runs no smoke phase: it times the earlier ``mt_best.cu``
-and ``bvh_rows.cu`` of commit 5d4361e (the one-step mt_best, the instanced
-walk's loop over every entry), copied into DIR (``git show
-5d4361e:tpuprt_torch/ops/csrc/mt_best.cu``), against the checkout's, with
-their front ends, in one process (ab_main). It refuses a source whose C
+``--old DIR`` runs no smoke phase: it times the earlier ``bvh_tiles.cu``
+and ``bvh_rows.cu`` of commit 2a258fc (the skip-link walks), copied into
+DIR (``git show 2a258fc:tpuprt_torch/ops/csrc/bvh_tiles.cu``), against the
+checkout's, in one process (ab_main), in the turns old, new, new, old
+(``--new-first``: new, old, old, new). It refuses a source whose C
 interface is not theirs (OLD_INTERFACES).
 """
 import argparse
@@ -100,6 +105,9 @@ BAND_MEAN = 2 * 0.000317
 BAND2_REL, BAND2_MEAN = 0.04, 0.015
 MT_CONFIG4_RAYS = 1 << 17  # config4_big camera rays held against mt_best
 T_RTOL = 1e-6             # kernel vs plain: t agreement (relative)
+# timed(): the spin before each timed call, about 8 ms at the H100's clock,
+# longer than a wrapper's host cost (Python and ctypes, up to ~1 ms).
+HOLD_CYCLES = 1 << 24
 SCALE_TERRAIN_N = 708     # bench.py's 1M-triangle terrain grid
 N_ROCKS, ROCK_SUBDIV, ROCK_SEED = 1000, 3, 1
 # Instanced vs duplicated rocks: tests/test_instances.py's tolerance
@@ -123,6 +131,7 @@ DUP_CLOSE, DUP_SHARE, DUP_MEAN = 2e-3, 0.995, 1e-3
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 SLAB_OPS, XFORM_OPS = 27, 45
 ROW_BYTES = 88 * 4
+DEEP_LEVELS = 40          # the hand-built deep tree (deep_tree)
 TRI_OPS = {"bvh_tiles": 56, "bvh_rows": 62, "bvh_instanced": 62}
 MT_STAGE_OPS = {"b1": 24, "b2": 39, "t": 45, "full": 56}
 # Instanced tie set: every DUP_EVERY-th rock repeated after the others.
@@ -195,6 +204,107 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0):
     return base_text[:cut] + "".join(out) + base_text[cut:]
 
 
+def deep_tree(levels, seed):
+    """A row-format BVH `levels` deep, built by hand from a seed, since
+    accel/csrc/bvh_build8.cpp's recursion guard (binary depth 60, then
+    equal splits) keeps its trees below about 28 levels. A spine: node k <
+    levels has 8 children, first the spine's next node, then 7 leaves, each
+    of 8 triangles of size 0.3 r at radius r = 0.8^k around the origin in
+    seeded directions; the last spine node is such a leaf. Every box is the
+    exact bound of what lies below it, so a ray through the middle enters
+    every child at every level, the spine first, and the row walk's stack
+    holds an entry a level, past its 32 local ones. Interior rows hold
+    their children's ids in cols 8..15, as the builder's do. Returns a
+    BvhAccel (host tensors: rows, child table, depth; no tiles)."""
+    import numpy as np
+    import torch
+    from tpuprt_torch.accel import bvh_build
+    from tpuprt_torch.scene.data import BvhAccel
+    rng = np.random.default_rng(seed)
+    rows, tid = [], 0
+
+    def leaf(k):
+        nonlocal tid
+        r = 0.8 ** k
+        c = rng.normal(size=(8, 3))
+        c *= r / np.linalg.norm(c, axis=1, keepdims=True)
+        tri = (c[:, None] + 0.3 * r * rng.normal(size=(8, 3, 3))
+               ).astype(np.float32)
+        row = np.zeros(bvh_build.NODE_COLS, np.float32)
+        row[0:3], row[3:6] = tri.min((0, 1)), tri.max((0, 1))
+        row[6], row[7] = len(rows) + 1, 8
+        row[8:80] = tri.reshape(72)
+        row[80:88] = np.arange(tid, tid + 8)
+        tid += 8
+        rows.append(row)
+
+    # Preorder: spine node k, its subtree through the spine, its 7 leaves.
+    spine = []
+    for k in range(levels):
+        spine.append(len(rows))
+        rows.append(np.zeros(bvh_build.NODE_COLS, np.float32))
+    leaf(levels)
+    for k in range(levels - 1, -1, -1):
+        first = spine[k] + 1
+        row = rows[spine[k]]
+        row[8:16] = [first] + list(range(len(rows), len(rows) + 7))
+        for _ in range(7):
+            leaf(k + 1)
+        below = np.stack(rows[first:])
+        row[0:3], row[3:6] = below[:, 0:3].min(0), below[:, 3:6].max(0)
+        row[6] = len(rows)
+    rows = np.stack(rows)
+    nn = len(rows)
+    depth, rank, parent = bvh_build.tree_links(rows, nn)
+    return BvhAccel(
+        bounds_lo=torch.from_numpy(rows[0, 0:3].copy()),
+        bounds_hi=torch.from_numpy(rows[0, 3:6].copy()),
+        nodes=torch.from_numpy(rows),
+        child=torch.from_numpy(bvh_build.child_table(rank, parent)),
+        max_depth=int(depth.max()), n_nodes=nn, leaf_k=8)
+
+
+def deep_rays(n, seed):
+    """Packed f32[8, n] rays for deep_tree: from a sphere of radius 3
+    through a point within 0.8^k of the origin (k uniform in [0, 40]),
+    a fifth with a short maxt."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o *= 3.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    tgt = rng.normal(size=(n, 3)) * (0.8 ** rng.uniform(0, 40, n))[:, None]
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    maxt = np.full(n, 1e30)
+    maxt[1::5] = rng.uniform(2.0, 3.5, len(maxt[1::5]))
+    return np.ascontiguousarray(np.concatenate(
+        [o, d, np.full((n, 1), 1e-3), maxt[:, None]], 1).T, np.float32)
+
+
+def understated_depth(timeout=300):
+    """The row walk told a depth below its tree's (deep_tree with
+    max_depth 1: 32 local stack levels for 40) must fail, not write past
+    its stack: the kernel traps and the launch's error surfaces at the
+    next synchronization. Run in a child process, since a trap leaves the
+    CUDA context unusable. Emits a line; raises if the child exits 0."""
+    code = (
+        "import sys, torch; sys.path.insert(0, %r); import chip_smoke as c; "
+        "from tpuprt_torch.ops import bvh_cuda; "
+        "from tpuprt_torch.scene.data import to_device; "
+        "b = to_device(c.deep_tree(c.DEEP_LEVELS, 6), 'cuda'); "
+        "r = torch.from_numpy(c.deep_rays(1 << 12, 7)).cuda(); "
+        "bvh_cuda.traverse_rows(b.nodes, r, nn=b.n_nodes, max_depth=1); "
+        "torch.cuda.synchronize()" % ROOT)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=timeout, cwd=ROOT)
+    err = [ln for ln in r.stderr.splitlines() if "Error" in ln]
+    emit(phase="refuse", kernel="bvh_rows",
+         set=f"deep_tree({DEEP_LEVELS}), max_depth 1", rc=r.returncode,
+         error=err[-1][:200] if err else None)
+    if r.returncode == 0:
+        raise AssertionError("the row walk ran a tree deeper than its stack")
+
+
 def random_rays(n, seed):
     """Packed f32[8, n] rays over the [-1,1]^2 terrain: most aim from above
     at it, a quarter point in random directions, a fifth carry a short
@@ -243,20 +353,30 @@ def sort_packed(bvh, rays):
 
 def timed(fn, reps=5):
     """Median time (ms) of `reps` calls between CUDA events on the current
-    stream, after a warm-up call; returns (ms, result of the last call)."""
+    stream, after a warm-up call, and the median host time (ms) a call
+    took to return; returns (ms, result of the last call, host_ms). A spin
+    kernel (HOLD_CYCLES) holds the stream while the host enqueues the
+    start event and the call, so a kernel's time is the device's, and its
+    host_ms the wrapper's launch cost (Python, checks, ctypes), which the
+    render pays on the host. A call that synchronizes (a plain version)
+    waits for the spin: its host_ms is not a launch cost."""
     import torch
     out = fn()
-    times = []
+    times, host = [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         out = fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2], out
+    mid = len(times) // 2
+    return sorted(times)[mid], out, sorted(host)[mid]
 
 
 def compare(ref, got):
@@ -296,17 +416,18 @@ def bound(name, nbytes, counts):
 
 
 def parity(label, name, kernel, ref, table_bytes, rays, reps=5,
-           modes=(False, True), plain_reps=None):
+           modes=(False, True), plain_reps=None, steps=None):
     """Kernel vs plain version on one packed ray set, in each mode (any_hit
     False, True): nearest must agree per ray (masks, ids outside ties, t),
     any-hit in its masks. `kernel(rays, any_hit)` and `ref(rays, any_hit,
     with_counts)` return (t, id[, inst][, counts]). The plain version is
-    timed over plain_reps calls (default reps)."""
+    timed over plain_reps calls (default reps). `steps(counts, n_rays)`,
+    where given, adds the line's steps_per_ray."""
     results = []
     for any_hit in modes:
-        ms, got = timed(lambda: kernel(rays, any_hit), reps)
-        plain_ms, _ = timed(lambda: ref(rays, any_hit, False),
-                            plain_reps or reps)
+        ms, got, host_ms = timed(lambda: kernel(rays, any_hit), reps)
+        plain_ms, _, _ = timed(lambda: ref(rays, any_hit, False),
+                               plain_reps or reps)
         *want, counts = ref(rays, any_hit, True)
         r = compare(want, got)
         n = rays.shape[1]
@@ -314,9 +435,11 @@ def parity(label, name, kernel, ref, table_bytes, rays, reps=5,
         bound_ms, bound_by, ops = bound(name, nbytes, counts)
         r.update(phase="parity", kernel=name, set=label,
                  mode="any" if any_hit else "nearest", ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                  fmad_floor_ms=ops / (F32_FLOPS / 2) * 1e3,
                  bytes=nbytes, ops=ops, counts=counts)
+        if steps:
+            r["steps_per_ray"] = steps(counts, n)
         emit(**r)
         bad = r["hit_mask_mismatch"] or (not any_hit and (
             r["id_mismatch"] or r["t_rel_max"] > T_RTOL))
@@ -327,27 +450,55 @@ def parity(label, name, kernel, ref, table_bytes, rays, reps=5,
     return results
 
 
+def steps_of(old_key, new_keys, scale=1):
+    """counts -> per-ray steps: the skip-link walk's dependent steps
+    (counts[old_key]) and the descent's entered nodes (the sum of
+    counts[new_keys] over `scale`), for parity's `steps`."""
+    def steps(c, n):
+        return dict(skip_link=c[old_key] / n,
+                    entered=sum(c[k] for k in new_keys) / scale / n)
+    return steps
+
+
+def bit_equal(rs):
+    """Raise unless every parity result has equal t and ids per ray (the
+    walks enter the nodes of their plain versions in the same order, so
+    both modes' results are fixed per ray)."""
+    for r in rs:
+        if r["id_mismatch"] or r["id_mismatch_at_ties"] or r["t_rel_max"]:
+            raise AssertionError(f"{r['kernel']} is not bit-equal: {r}")
+    return rs
+
+
 def tiles_parity(label, bvh, rays, reps=5):
+    """The tile walk vs its plain version. Bytes: what the plain version
+    needs, the tile rows, skip and meta once (the kernel reads its child-id
+    table instead of skip and meta)."""
     from tpuprt_torch.ops import bvh_cuda
     args = (bvh.nodesT, bvh.nodeskip, bvh.nodemeta)
-    return parity(
+    return bit_equal(parity(
         label, "bvh_tiles",
-        lambda r, a: bvh_cuda.traverse_tiles(*args, r, nn=bvh.n_nodes,
-                                             any_hit=a),
+        lambda r, a: bvh_cuda.traverse_tiles(*args, bvh.child, r,
+                                             nn=bvh.n_nodes, any_hit=a),
         lambda r, a, c: bvh_cuda.traverse_tiles_ref(
             *args, r, nn=bvh.n_nodes, any_hit=a, with_counts=c),
-        bvh.n_nodes * (128 * 4 + 8), rays, reps)
+        bvh.n_nodes * (128 * 4 + 8), rays, reps,
+        steps=steps_of("steps", ("slab", "tri"), 8)))
 
 
 def rows_parity(label, bvh, rays, reps=5):
+    """The row walk vs its plain version. Bytes: the rows' read columns
+    once."""
     from tpuprt_torch.ops import bvh_cuda
-    return parity(
+    return bit_equal(parity(
         label, "bvh_rows",
         lambda r, a: bvh_cuda.traverse_rows(bvh.nodes, r, nn=bvh.n_nodes,
+                                            max_depth=bvh.max_depth,
                                             any_hit=a),
         lambda r, a, c: bvh_cuda.traverse_rows_ref(
             bvh.nodes, r, nn=bvh.n_nodes, any_hit=a, with_counts=c),
-        bvh.n_nodes * ROW_BYTES, rays, reps)
+        bvh.n_nodes * ROW_BYTES, rays, reps,
+        steps=steps_of("slab", ("entered",))))
 
 
 def instanced_parity(label, inst, rays, reps=5, exact=False):
@@ -638,17 +789,21 @@ def profile_render(label, scene, opts, device, **extra):
     return r
 
 
-# The C interfaces of the earlier mt_best.cu and bvh_rows.cu (commit
-# 5d4361e), as parameter types in order: the sources that --old times
-# against the checkout's. A source with another interface is refused,
-# never called.
+# The C interfaces of the earlier bvh_tiles.cu and bvh_rows.cu (commit
+# 2a258fc: the skip-link walks), as parameter types in order: the sources
+# that --old times against the checkout's. A source with another
+# interface is refused, never called.
 OLD_INTERFACES = {
-    "mt_best.cu": ("mt_best_launch", "const float*, int, const float*, int, "
-                   "float*, int*, void*"),
-    "bvh_rows.cu": ("bvh_instanced_launch", "const float*, const int*, "
-                    "const int*, const int*, const int*, const float*, "
-                    "const float*, int, int, const float*, int, int, float*, "
-                    "int*, int*, void*")}
+    "bvh_tiles.cu": {"bvh_tiles_launch": (
+        "const float*, const int*, const int*, const float*, int, int, int, "
+        "float*, int*, void*")},
+    "bvh_rows.cu": {
+        "bvh_rows_launch": ("const float*, const float*, int, int, int, "
+                            "float*, int*, void*"),
+        "bvh_instanced_launch": (
+            "const float*, const float*, int, const int*, const int*, "
+            "const int*, const int*, const float*, const float*, int, "
+            "const float*, int, int, float*, int*, int*, void*")}}
 
 
 def c_interface(path, name):
@@ -662,20 +817,21 @@ def c_interface(path, name):
 
 
 def bind_old(old_dir, src):
-    """The launch function of OLD_INTERFACES[src] in old_dir/src, built
-    with the port's nvcc flags and bound through ctypes; raises unless its
-    parameter types are the listed ones."""
+    """{name: launch function} of OLD_INTERFACES[src] in old_dir/src, built
+    with the port's nvcc flags and bound through ctypes; raises unless
+    every one has the listed parameter types."""
     import ctypes
     from tpuprt_torch.ops import bvh_cuda
-    name, want = OLD_INTERFACES[src]
     path = os.path.join(old_dir, src)
-    got = c_interface(path, name)
-    if got != want:
-        raise SystemExit(f"{path}: {name}({got}) is not the interface "
-                         f"--old knows ({want})")
-    return bvh_cuda._bind(path, name, [
+    for name, want in OLD_INTERFACES[src].items():
+        got = c_interface(path, name)
+        if got != want:
+            raise SystemExit(f"{path}: {name}({got}) is not the interface "
+                             f"--old knows ({want})")
+    return {name: bvh_cuda._bind(path, name, [
         ctypes.c_void_p if t.endswith("*") else ctypes.c_int
         for t in want.split(", ")])
+        for name, want in OLD_INTERFACES[src].items()}
 
 
 def ptxas_report(src):
@@ -691,196 +847,169 @@ def ptxas_report(src):
         if re.search(r"registers|spill|Compiling entry", ln)])
 
 
-def in_turns(label, runs, reps, check):
-    """Each zero-argument callable of `runs` {name: fn} timed (`timed`) in
-    the turns old, new, new, old: "old" first and last, the others twice
-    in between. `check(last results)` -> {name: agrees}; every one must."""
+def turns(new_first=False):
+    """The order in which --old runs its two trees: old, new, new, old, or
+    with new_first new, old, old, new (a position effect shows as the
+    outer or inner turns' lead, whichever tree holds them)."""
+    return ["new", "old", "old", "new"] if new_first else \
+        ["old", "new", "new", "old"]
+
+
+def in_turns(label, runs, reps, check, new_first=False):
+    """Each zero-argument callable of `runs` {"old": fn, "new": fn} timed
+    (`timed`: device ms and the call's host ms) in the order turns().
+    `check(last results)` -> {name: agrees}; every one must."""
     import torch
-    news = [k for k in runs if k != "old"]
-    times, last = {k: [] for k in runs}, {}
-    for k in ["old"] + news + news + ["old"]:
-        ms, last[k] = timed(runs[k], reps)
+    times, host, last = {k: [] for k in runs}, {k: [] for k in runs}, {}
+    for k in turns(new_first):
+        ms, last[k], host_ms = timed(runs[k], reps)
         times[k].append(ms)
+        host[k].append(host_ms)
     torch.cuda.synchronize()
     agree = check(last)
-    emit(phase="ab", set=label, ms=times, agree=agree)
+    emit(phase="ab", set=label, turns=turns(new_first), ms=times,
+         host_ms=host, agree=agree)
     if not all(agree.values()):
         raise AssertionError(f"{label}: the trees disagree {agree}")
 
 
-def ab_main(old_dir, reps=5, renders=2):
-    """--old: the earlier mt_best and instanced walk (commit 5d4361e, the
-    sources in old_dir) against the checkout's, in one process on one card. Sets: config2/none's
-    camera and random rays and every 8th of config4_big's camera rays
-    (nearest), config4_big/none's busiest shadow batch (the earlier
-    nearest pass against any hit), each through the earlier kernel in lane
-    order (its front end), the new kernel in lane order ("unsorted", the front end's
-    for nearest calls) and in mt_cuda.ray_order with the sort and
-    un-permute timed ("sorted", the front end's for any-hit calls); the
-    rocks' camera rays (nearest) and the rocks render's busiest shadow
-    batch (any hit) through both instanced walks in lane order. Nearest
-    results must be equal bit for bit, any-hit masks equal. Then renders of
-    config4_big/none, config2/none and the rocks with each tree's kernels
-    and front end in place: in the same turns, `renders` timed renders and
-    one under the profiler each (host wall, device time of the swapped
-    kernel)."""
+def ab_main(old_dir, reps=5, renders=2, new_first=False):
+    """--old: the earlier tile and row walks (commit 2a258fc, the sources
+    in old_dir: skip-link walks) against the checkout's, in one process on
+    one card, in the order turns(new_first). Sets, each through both tile walks and both row walks in
+    the front end's sorted order: config4_big's camera rays (nearest),
+    the 1M terrain's random rays (nearest, NN 164,480) and the
+    config4_big render's busiest shadow batch (any hit); t and ids must be
+    equal bit for bit. Then renders of config4_big (tile walk),
+    config4_big/rows, the rocks and the duplicated rocks with each tree's
+    walks in place (the instanced walk too, which shares bvh_rows.cu):
+    in the same turns, `renders` timed renders and one under the profiler
+    each (host wall, device time of each walk). The old walks are called
+    through bare ctypes closures, the new through bvh_cuda's wrappers:
+    each set's line gives both calls' host ms."""
     import torch
     from tpuprt_torch import render as R
-    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch.ops import bvh_cuda
     from tpuprt_torch.scene.data import to_device
-    from tpuprt_torch.scene.parser import load_scene, load_scene_string
+    from tpuprt_torch.scene.parser import load_scene
     device = "cuda"
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as ex:
+    with ThreadPoolExecutor(4) as ex:
         old = [ex.submit(bind_old, old_dir, s)
-               for s in ("mt_best.cu", "bvh_rows.cu")]
-        new = [ex.submit(bvh_cuda.build, s) for s in (
-            mt_cuda.MT_SRC, bvh_cuda.ROWS_SRC, bvh_cuda.KERNEL_SRC)]
-        old_mt, old_inst = (f.result() for f in old)
+               for s in ("bvh_tiles.cu", "bvh_rows.cu")]
+        new = [ex.submit(bvh_cuda.build, s)
+               for s in (bvh_cuda.KERNEL_SRC, bvh_cuda.ROWS_SRC)]
+        old_fns = {k: v for f in old for k, v in f.result().items()}
         for f in new:
             f.result()
     emit(phase="build", old=old_dir, seconds=time.perf_counter() - t0)
-    for src in (os.path.join(old_dir, "mt_best.cu"),
-                os.path.join(old_dir, "bvh_rows.cu"), mt_cuda.MT_SRC,
+    for src in (os.path.join(old_dir, "bvh_tiles.cu"),
+                os.path.join(old_dir, "bvh_rows.cu"), bvh_cuda.KERNEL_SRC,
                 bvh_cuda.ROWS_SRC):
         ptxas_report(src)
+
+    def outputs(n, k=2):
+        return [torch.empty(n, dtype=dt, device=device)
+                for dt in (torch.float32, torch.int32, torch.int32)[:k]]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def old_mt_best(rays, tris, any_hit=False):
-        # The earlier kernel has no any-hit mode: its nearest hit gives the
-        # mask.
-        n = rays.shape[1]
-        t = torch.empty(n, dtype=torch.float32, device=device)
-        ids = torch.empty(n, dtype=torch.int32, device=device)
-        assert old_mt(rays.data_ptr(), n, tris.data_ptr(), tris.shape[1],
-                      t.data_ptr(), ids.data_ptr(), stream()) == 0
-        return t, ids
+    def old_tiles(nodesT, nodeskip, nodemeta, child, rays, *, nn,
+                  any_hit=False):
+        out = outputs(rays.shape[1])
+        assert old_fns["bvh_tiles_launch"](
+            nodesT.data_ptr(), nodeskip.data_ptr(), nodemeta.data_ptr(),
+            rays.data_ptr(), rays.shape[1], nn, int(any_hit),
+            *(x.data_ptr() for x in out), stream()) == 0
+        return tuple(out)
+
+    def old_rows(nodes, rays, *, nn, max_depth, any_hit=False):
+        out = outputs(rays.shape[1])
+        assert old_fns["bvh_rows_launch"](
+            nodes.data_ptr(), rays.data_ptr(), rays.shape[1], nn,
+            int(any_hit), *(x.data_ptr() for x in out), stream()) == 0
+        return tuple(out)
 
     def old_instanced(nodes, e_block, e_inst, e_start, e_stop, e_bbox, w2o12,
                       rays, *, cap, top, any_hit=False):
-        n = rays.shape[1]
-        out = [torch.empty(n, dtype=dt, device=device)
-               for dt in (torch.float32, torch.int32, torch.int32)]
-        assert old_inst(nodes.data_ptr(), e_block.data_ptr(),
-                        e_inst.data_ptr(), e_start.data_ptr(),
-                        e_stop.data_ptr(), e_bbox.data_ptr(),
-                        w2o12.data_ptr(), e_block.shape[0], cap,
-                        rays.data_ptr(), n, int(any_hit),
-                        *(x.data_ptr() for x in out), stream()) == 0
+        out = outputs(rays.shape[1], 3)
+        assert old_fns["bvh_instanced_launch"](
+            nodes.data_ptr(), top.data_ptr(), top.shape[0],
+            e_block.data_ptr(), e_inst.data_ptr(), e_start.data_ptr(),
+            e_stop.data_ptr(), e_bbox.data_ptr(), w2o12.data_ptr(), cap,
+            rays.data_ptr(), rays.shape[1], int(any_hit),
+            *(x.data_ptr() for x in out), stream()) == 0
         return tuple(out)
 
-    def lane_order(box, o, d, mint, maxt):
-        return torch.arange(len(o), device=device)
-    lane = (mt_cuda, "ray_order", lane_order)
+    def same(res):
+        ref = res["old"]
+        return {k: all(bool(torch.equal(a, b)) for a, b in zip(ref, r))
+                for k, r in res.items()}
 
-    # Each tree's kernels in place: {name: [(module, attribute, value)]}.
-    # The earlier front end passed every ray in lane order.
-    brute = {"old": [(mt_cuda, "mt_best", old_mt_best), lane], "new": []}
-    inst_v = {"old": [(bvh_cuda, "traverse_instanced", old_instanced)],
-              "new": []}
-
-    def swapped(patches):
-        stack = contextlib.ExitStack()
-        for p in patches:
-            stack.enter_context(patched(*p))
-        return stack
-
-    def same(exact):
-        def check(res):
-            ref = res["old"]
-            return {k: all(bool(torch.equal(a, b)) for a, b in zip(ref, r))
-                    if exact else bool(torch.equal(ref[1] >= 0, r[1] >= 0))
-                    for k, r in res.items()}
-        return check
-
-    # mt_best's sets.
     scene, opts = load_scene(SCENE)
     opts = opts._replace(chunk_size=1 << 17, half_readback=True)
     scene_d = to_device(scene, device)
-    cam = camera_rays(scene_d, opts, device)
-    c4_rays = cam[:, ::cam.shape[1] // MT_CONFIG4_RAYS].contiguous()
-    del cam
-    c4_tris = mt_cuda.pack_table(scene_d.triangles)
-    c4_box = (scene_d.world_bound_lo, scene_d.world_bound_hi)
-    none_scene = dataclasses.replace(scene, accel=None)
-    with patched(*lane):
-        shadow = capture_rays(none_scene, opts, device, mt_cuda, "mt_best",
-                              0)[True]
-    c2, c2_opts = load_scene_string(config2_none_text())
-    c2_opts = c2_opts._replace(chunk_size=1 << 17, half_readback=True)
-    c2_d = to_device(c2, device)
-    c2_tris = mt_cuda.pack_table(c2_d.triangles)
-    c2_box = (c2_d.world_bound_lo, c2_d.world_bound_hi)
-
-    def sorted_mt(rays, tris, box, any_hit):
-        order = mt_cuda.ray_order(box, rays[0:3].T, rays[3:6].T, rays[6],
-                                  rays[7])
-        return bvh_cuda.unsort(order, *mt_cuda.mt_best(
-            rays[:, order].contiguous(), tris, any_hit=any_hit))
-
-    for label, rays, tris, box, any_hit in (
-            ("config2/camera", camera_rays(c2_d, c2_opts, device), c2_tris,
-             c2_box, False),
-            ("config2/random", torch.from_numpy(random_rays(1 << 18, 4))
-             .to(device), c2_tris, c2_box, False),
-            ("config4_big/camera", c4_rays, c4_tris, c4_box, False),
+    big, _ = scale_scene(device)
+    shadow = capture_rays(scene, opts, device, bvh_cuda, "traverse_tiles",
+                          4)[True]
+    for label, bvh, rays, any_hit in (
+            ("config4_big/camera", scene_d.accel,
+             sort_packed(scene_d.accel, camera_rays(scene_d, opts, device)),
+             False),
+            (f"terrain{SCALE_TERRAIN_N}/random", big.accel,
+             sort_packed(big.accel, torch.from_numpy(
+                 random_rays(1 << 16, 2)).to(device)), False),
             (f"config4_big/shadow ({shadow.shape[1]} rays, "
-             f"{int((shadow[6] <= shadow[7]).sum())} live)", shadow, c4_tris,
-             c4_box, True)):
-        in_turns(f"mt_best {label}, {'any' if any_hit else 'nearest'}", {
-            "old": lambda: old_mt_best(rays, tris),
-            "sorted": lambda: sorted_mt(rays, tris, box, any_hit),
-            "unsorted": lambda: mt_cuda.mt_best(rays, tris,
-                                                any_hit=any_hit)},
-            reps, same(not any_hit))
-    del c4_rays, shadow, scene_d, c2_d
+             f"{int((shadow[6] <= shadow[7]).sum())} live)", scene_d.accel,
+             shadow, True)):
+        mode = "any" if any_hit else "nearest"
+        tiles = (bvh.nodesT, bvh.nodeskip, bvh.nodemeta, bvh.child, rays)
+        in_turns(f"bvh_tiles {label}, {mode}", {
+            "old": lambda: old_tiles(*tiles, nn=bvh.n_nodes,
+                                     any_hit=any_hit),
+            "new": lambda: bvh_cuda.traverse_tiles(*tiles, nn=bvh.n_nodes,
+                                                   any_hit=any_hit)},
+            reps, same, new_first)
+        kw = dict(nn=bvh.n_nodes, max_depth=bvh.max_depth, any_hit=any_hit)
+        in_turns(f"bvh_rows {label}, {mode}", {
+            "old": lambda: old_rows(bvh.nodes, rays, **kw),
+            "new": lambda: bvh_cuda.traverse_rows(bvh.nodes, rays, **kw)},
+            reps, same, new_first)
+    del scene_d, big, shadow
 
-    # The instanced walk's sets.
+    # Renders with each tree's walks in place, in the same turns.
     with open(SCENE) as f:
-        rocks, ropts = load_scene_string(rocks_scene_text(
+        rocks, dup, ropts = rocks_scenes(rocks_scene_text(
             f.read(), N_ROCKS, ROCK_SUBDIV, ROCK_SEED))
     ropts = ropts._replace(chunk_size=1 << 17, half_readback=True)
-    rocks_d = to_device(rocks, device)
-    inst = rocks_d.instances
-    args = (inst.nodes, inst.entry_block, inst.entry_inst, inst.entry_start,
-            inst.entry_stop, inst.entry_bbox,
-            inst.inst_w2o[:, :3, :].reshape(inst.count, 12).contiguous())
-    rshadow = capture_rays(rocks, ropts, device, bvh_cuda,
-                           "traverse_instanced", 7)[True]
-    for label, rays, any_hit in (
-            ("rocks/camera", camera_rays(rocks_d, ropts, device), False),
-            (f"rocks/shadow ({rshadow.shape[1]} rays, "
-             f"{int((rshadow[6] <= rshadow[7]).sum())} live)", rshadow,
-             True)):
-        kw = dict(cap=inst.block_cap, top=inst.top_nodes, any_hit=any_hit)
-        in_turns(f"bvh_instanced {label}, {'any' if any_hit else 'nearest'}",
-                 {"old": lambda: old_instanced(*args, rays, **kw),
-                  "new": lambda: bvh_cuda.traverse_instanced(*args, rays,
-                                                             **kw)},
-                 reps, same(not any_hit))
-    del inst, rshadow, rocks_d, args
-
-    # Renders with each tree's kernels in place, in the same turns.
-    paths = (("config4_big/none", none_scene, opts, "mt_best", brute),
-             ("config2/none", c2, c2_opts, "mt_best", brute),
-             (f"rocks({N_ROCKS})", rocks, ropts, "bvh_instanced", inst_v))
-    for label, sc, op, kernel, variants in paths:
-        news = [k for k in variants if k != "old"]
+    rows_scene = dataclasses.replace(scene, accel=dataclasses.replace(
+        scene.accel, nodesT=None, nodeskip=None, nodemeta=None))
+    variants = {"old": [(bvh_cuda, "traverse_tiles", old_tiles),
+                        (bvh_cuda, "traverse_rows", old_rows),
+                        (bvh_cuda, "traverse_instanced", old_instanced)],
+                "new": []}
+    walks = ("bvh_tiles", "bvh_rows", "bvh_instanced")
+    for label, sc, op in (("config4_big", scene, opts),
+                          ("config4_big/rows", rows_scene, opts),
+                          (f"rocks({N_ROCKS})", rocks, ropts),
+                          ("rocks/duplicated", dup, ropts)):
         walls = {k: [] for k in variants}
         device_ms = {k: [] for k in variants}
-        for v in ["old"] + news + news + ["old"]:
-            with swapped(variants[v]):
+        for v in turns(new_first):
+            with contextlib.ExitStack() as stack:
+                for p in variants[v]:
+                    stack.enter_context(patched(*p))
                 for _ in range(renders):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     R.render(sc, op, device=device)
                     walls[v].append(time.perf_counter() - t0)
                 prof = profile_render(label, sc, op, device, tree=v)
-            device_ms[v].append(prof["traversal_ms"][kernel])
-        emit(phase="ab_render", scene=label, kernel=kernel, walls_s=walls,
-             kernel_device_ms=device_ms)
+            device_ms[v].append({k: prof["traversal_ms"][k] for k in walks
+                                 if prof["traversal_ms"][k]})
+        emit(phase="ab_render", scene=label, turns=turns(new_first),
+             walls_s=walls, walk_device_ms=device_ms)
 
 
 def main(argv=None):
@@ -891,9 +1020,12 @@ def main(argv=None):
                     help="also profile one more render of each scene: "
                     "device time by kernel and the device's idle share")
     ap.add_argument("--old", metavar="DIR",
-                    help="instead of the smoke run, time the mt_best.cu and "
-                    "bvh_rows.cu of commit 5d4361e, in DIR, against the "
+                    help="instead of the smoke run, time the bvh_tiles.cu "
+                    "and bvh_rows.cu of commit 2a258fc, in DIR, against the "
                     "checkout's")
+    ap.add_argument("--new-first", action="store_true",
+                    help="with --old, run the trees in the turns new, old, "
+                    "old, new")
     args = ap.parse_args(argv)
 
     import torch
@@ -913,7 +1045,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     if args.old:
-        ab_main(args.old)
+        ab_main(args.old, new_first=args.new_first)
         print(smi, flush=True)
         return 0
 
@@ -960,6 +1092,23 @@ def main(argv=None):
     res["bvh_tiles"] += tiles_parity(label, big.accel, rays, reps=3)
     res["bvh_rows"] += rows_parity(label, big.accel, rays, reps=3)
     del big, rays
+
+    # 3b. The row walk on a tree deeper than the tile walk takes and than
+    # its stack's local levels (the scratch path), built by hand.
+    deep = deep_tree(DEEP_LEVELS, 6)
+    from tpuprt_torch.accel import bvh_build
+    assert bvh_build.build_tiles(deep.nodes.numpy(), np.full(
+        (deep.n_nodes, 8), -1, np.int32), deep.n_nodes) is None
+    scratch = bvh_cuda.rows_stack_scratch(deep.max_depth, 1, "cpu")
+    assert scratch is not None, deep.max_depth
+    emit(phase="load", scene=f"deep_tree({DEEP_LEVELS})", nn=deep.n_nodes,
+         max_depth=deep.max_depth, scratch_entries=scratch.shape[0])
+    deep = to_device(deep, device)
+    res["bvh_rows"] += rows_parity(
+        f"deep_tree({DEEP_LEVELS})/random", deep,
+        torch.from_numpy(deep_rays(1 << 16, 7)).to(device))
+    del deep
+    understated_depth()
 
     # 4. Main path, tile walk: load_scene -> render -> write_exr with
     # bench.py's settings for config4_big (2^17 lanes, f16 readback).
@@ -1142,7 +1291,7 @@ def main(argv=None):
                             name != "bvh_instanced"),
             ms=timed_on["ms"], plain_ms=timed_on["plain_ms"],
             bound_ms=timed_on["bound_ms"], bound_by=timed_on["bound_by"],
-            library_ms=None,
+            library_ms=None, steps_per_ray=timed_on.get("steps_per_ray"),
             timed_on=f"{timed_on['set']}, {timed_on['mode']}",
             launches_on=path_of[name],
             parity=[{k: r[k] for k in ("set", "mode", "hit_mask_mismatch",

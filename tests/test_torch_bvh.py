@@ -35,6 +35,7 @@ from tpuprt.scene.parser import load_scene_string as jax_load  # noqa: E402
 from tpuprt_torch.accel import bvh_build  # noqa: E402
 from tpuprt_torch.ops import bvh_cuda  # noqa: E402
 from tpuprt_torch.scene.bridge import from_numpy_tables  # noqa: E402
+from tpuprt_torch.scene.data import BvhAccel  # noqa: E402
 from tpuprt_torch.scene.parser import load_scene_string  # noqa: E402
 
 
@@ -207,8 +208,9 @@ def test_rows_when_tiles_rejected(scenes, monkeypatch):
 
 
 def test_render_copies_only_the_walked_format(scenes, monkeypatch):
-    """render() hands the pool the tiles without the rows when the BVH has
-    tiles, and the rows when it has none."""
+    """render() hands the pool the tiles and their child-id table without
+    the rows when the BVH has tiles, and the rows without the child-id
+    table (the row walk reads its rows' own child ids) when it has none."""
     from tpuprt_torch import render as R
     _, tscene = scenes
     seen = []
@@ -219,7 +221,10 @@ def test_render_copies_only_the_walked_format(scenes, monkeypatch):
     for scene in (tscene, rows_only):
         R.render(scene, R.RenderOptions(), device="cpu")
     assert seen[0].nodes is None and seen[0].nodesT is not None
+    assert torch.equal(seen[0].child, tscene.accel.child)
     assert torch.equal(seen[1].nodes, tscene.accel.nodes)
+    assert seen[1].child is None and seen[1].max_depth == \
+        tscene.accel.max_depth
     assert tscene.accel.nodes is not None
 
 
@@ -240,3 +245,326 @@ def test_builder_source_is_tpuprts():
     ref = code(os.path.join(_ROOT, "tpuprt", "native", "csrc",
                             "bvh_build8.cpp"))
     assert len(ref) > 100 and code(port) == ref
+
+
+# The descent both CUDA walks now take, as a plain torch mirror: an entered
+# interior node tests its children's boxes, enters the lowest hit and
+# keeps (node << 8) | the other hits on a per-ray stack, one entry a
+# level; a pop takes the deepest entry's lowest bit, so nodes are entered
+# in preorder. The tile walk finds a node's children in the child-id
+# table, the row walk in the node's own row (cols 8..15, by slot). It belongs to these tests: the plain versions stay the
+# skip-link walks, and the mirror shows the two bit-identical on the CPU.
+
+def _tiles_leaf(row, o, d, mint, maxt, bt, bi, any_hit):
+    """The tile walk's leaf: 8 Moller-Trumbore tests on tile rows, the
+    lowest id among equal t (traverse_tiles_ref's arithmetic)."""
+    ox, oy, oz = (o[:, k, None] for k in range(3))
+    dx, dy, dz = (d[:, k, None] for k in range(3))
+    p0x, p0y, p0z = row[:, 0:8], row[:, 8:16], row[:, 16:24]
+    e1x, e1y, e1z = row[:, 24:32], row[:, 32:40], row[:, 40:48]
+    e2x, e2y, e2z = row[:, 48:56], row[:, 56:64], row[:, 64:72]
+    pidf = row[:, 72:80]
+    s1x, s1y, s1z = dy * e2z - dz * e2y, dz * e2x - dx * e2z, \
+        dx * e2y - dy * e2x
+    div = s1x * e1x + s1y * e1y + s1z * e1z
+    ok = torch.abs(div) > 1e-12
+    inv = 1.0 / torch.where(ok, div, 1.0)
+    sx, sy, sz = ox - p0x, oy - p0y, oz - p0z
+    b1 = (sx * s1x + sy * s1y + sz * s1z) * inv
+    s2x, s2y, s2z = sy * e1z - sz * e1y, sz * e1x - sx * e1z, \
+        sx * e1y - sy * e1x
+    b2 = (dx * s2x + dy * s2y + dz * s2z) * inv
+    t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv
+    valid = ok & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0) & \
+        (t > mint[:, None]) & (t < torch.minimum(maxt, bt)[:, None]) & \
+        (pidf >= 0.0)
+    if any_hit:
+        valid = valid & (bi < 0)[:, None]
+    tv = torch.where(valid, t, 1e30)
+    tmin = tv.min(dim=1).values
+    idmin = torch.where(valid & (tv <= tmin[:, None]), pidf,
+                        1e30).min(dim=1).values
+    upd = tmin < bt
+    return torch.where(upd, tmin, bt), torch.where(upd, idmin.int(), bi)
+
+
+def _rows_leaf(row, o, d, mint, maxt, bt, bi, any_hit):
+    """The row walk's leaf: 8 tests in slot order against the running
+    best, slot j valid for j < nprims and pid >= 0 (_walk_rows's)."""
+    nprims = row[:, 7].long()
+    for j in range(8):
+        c = 8 + 9 * j
+        p0 = row[:, c:c + 3]
+        e1, e2 = row[:, c + 3:c + 6] - p0, row[:, c + 6:c + 9] - p0
+        pid = row[:, 80 + j].to(torch.int32)
+        s1 = [d[:, 1] * e2[:, 2] - d[:, 2] * e2[:, 1],
+              d[:, 2] * e2[:, 0] - d[:, 0] * e2[:, 2],
+              d[:, 0] * e2[:, 1] - d[:, 1] * e2[:, 0]]
+        div = s1[0] * e1[:, 0] + s1[1] * e1[:, 1] + s1[2] * e1[:, 2]
+        ok = torch.abs(div) > 1e-12
+        inv = 1.0 / torch.where(ok, div, 1.0)
+        s = [o[:, k] - p0[:, k] for k in range(3)]
+        b1 = (s[0] * s1[0] + s[1] * s1[1] + s[2] * s1[2]) * inv
+        s2 = [s[1] * e1[:, 2] - s[2] * e1[:, 1],
+              s[2] * e1[:, 0] - s[0] * e1[:, 2],
+              s[0] * e1[:, 1] - s[1] * e1[:, 0]]
+        b2 = (d[:, 0] * s2[0] + d[:, 1] * s2[1] + d[:, 2] * s2[2]) * inv
+        t = (e2[:, 0] * s2[0] + e2[:, 1] * s2[1] + e2[:, 2] * s2[2]) * inv
+        valid = ok & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0) & \
+            (t > mint) & (t < torch.minimum(maxt, bt)) & (j < nprims) & \
+            (pid >= 0)
+        if any_hit:
+            valid = valid & (bi < 0)
+        bt = torch.where(valid, t, bt)
+        bi = torch.where(valid, pid, bi)
+    return bt, bi
+
+
+def slot_children(nodes, nd):
+    """The child ids of nodes `nd` by slot, from their rows' cols 8..15
+    (-1 where the slot is empty or the node is a leaf): what the row walk
+    descends by."""
+    c = nodes[nd, 8:16]
+    return torch.where((nodes[nd, 7:8] == 0) & (c > 0), c.long(), -1)
+
+
+def descent_mirror(table, child, rays, nn, any_hit, rows):
+    """The tile walk (rows=False: `table` the tile rows, `child` its
+    child-id table) or the row walk (rows=True: `table` the node rows,
+    whose own child ids it reads, `child` unused; each node's own box
+    tested again on entry) as the CUDA kernels descend, vectorized over
+    rays. Returns (t,
+    id, steps i64[N]: the nodes the walk moved to, entered or not, entered
+    i64[N]: the nodes entered, the most stack levels any ray held)."""
+    n = rays.shape[1]
+    o_all, d_all = rays[0:3].T, rays[3:6].T
+    inv_all = bvh_cuda._safe_inv(d_all)
+    best_t = torch.full((n,), 1e30)
+    best_id = torch.full((n,), -1, dtype=torch.int32)
+    node = torch.full((n,), 0 if nn else -1, dtype=torch.int64)
+    top = torch.zeros(n, dtype=torch.int64)
+    stack = torch.zeros((n, 64), dtype=torch.int64)
+    steps, entered = torch.zeros_like(top), torch.zeros_like(top)
+    deepest = 0
+
+    def children(nd):
+        return slot_children(table, nd) if rows else child[nd].long()
+    while True:
+        act = torch.nonzero(node >= 0).flatten()
+        if not act.numel():
+            break
+        nd = node[act]
+        row = table[nd]
+        o, d, inv = o_all[act], d_all[act], inv_all[act]
+        mint, maxt = rays[6, act], rays[7, act]
+        bt, bi = best_t[act], best_id[act]
+        ids = children(nd)
+        clip = (torch.minimum(maxt, bt) * (1.0 + 1e-6))[:, None]
+        own = bvh_cuda._slab_hit(row[:, :6], o, inv, mint, clip[:, 0]) \
+            if rows else torch.ones_like(nd, dtype=torch.bool)
+        if rows:
+            leaf = own & (row[:, 7] > 0)
+            inner = own & (row[:, 7] == 0)
+            boxes = table[ids.clamp(min=0)][:, :, :6]
+            leaf_fn = _rows_leaf
+        else:
+            leaf = ids[:, 0] < 0
+            inner = ~leaf
+            boxes = row[:, :48].reshape(-1, 6, 8).transpose(1, 2)
+            leaf_fn = _tiles_leaf
+        nt, ni = leaf_fn(row, o, d, mint, maxt, bt, bi, any_hit)
+        best_t[act] = torch.where(leaf, nt, bt)
+        best_id[act] = torch.where(leaf, ni, bi)
+        hit = inner[:, None] & (ids >= 0) & bvh_cuda._slab_hit(
+            boxes, o[:, None], inv[:, None], mint[:, None], clip)
+        steps[act] += 1
+        entered[act] += own.long()
+
+        # Descend to the lowest hit; the others wait with their parent.
+        hits = torch.where(hit, 1 << torch.arange(8), 0).sum(dim=1)
+        down = hits > 0
+        first = torch.log2((hits & -hits).clamp(min=1).double()).long()
+        rest = hits & (hits - 1)
+        t = top[act]
+        push = rest > 0
+        stack[act[push], t[push]] = (nd[push] << 8) | rest[push]
+        t = t + push.long()
+        nxt = torch.full_like(nd, -1)
+        nxt[down] = ids[down, first[down]]
+        deepest = max(deepest, int(t.max()))
+        # Pop: the deepest entry's lowest bit; an entry with none left goes.
+        up = ~down & (t > 0)
+        e = stack[act[up], t[up] - 1]
+        m = e & 0xFF
+        left = m & (m - 1)
+        stack[act[up], t[up] - 1] = (e & ~0xFF) | left
+        bit = torch.log2((m & -m).double()).long()
+        nxt[up] = children(e >> 8).gather(1, bit[:, None])[:, 0]
+        t[up] -= (left == 0).long()
+        if any_hit:
+            nxt[leaf & (best_id[act] >= 0)] = -1
+        top[act] = t
+        node[act] = nxt
+    return best_t, best_id, steps, entered, deepest
+
+
+def skip_link_children(nodes, nn):
+    """[n, r] = the r-th child of n along the skip links (n + 1, then each
+    child's skip until n's own), -1 past the last."""
+    skip = nodes[:nn, 6].long().tolist()
+    nprims = nodes[:nn, 7].long().tolist()
+    out = torch.full((nn, 8), -1, dtype=torch.int32)
+    for n in range(nn):
+        if nprims[n]:
+            continue
+        c, r = n + 1, 0
+        while c < skip[n]:
+            out[n, r] = c
+            c, r = skip[c], r + 1
+    return out
+
+
+@pytest.mark.parametrize("tree", ["config4_big", "tiles_rejected", "deep"])
+def test_child_table_is_the_skip_link_children(scenes, monkeypatch, tree):
+    """accel/bvh_build.child_table (the table the tile walk descends by)
+    holds each node's children by rank as the skip links give them, and
+    the interior rows' own child ids (cols 8..15, indexed by the binary
+    path, which the row walk descends by) name the same children in the
+    same order, so both descents enter them in preorder: on config4_big's
+    tree, on the terrain's tree built when build_tiles rejects it, and on
+    chip_smoke's hand-built deep tree, whose depth is recorded."""
+    import chip_smoke
+    if tree == "config4_big":
+        bvh = load_scene_string(open(chip_smoke.SCENE).read())[0].accel
+        assert bvh.max_depth == 5
+    elif tree == "tiles_rejected":
+        monkeypatch.setattr(bvh_build, "MAX_TILE_DEPTH", 1)
+        bvh = bvh_build.build_bvh(scenes[1].triangles)
+        assert bvh.nodesT is None
+        assert torch.equal(bvh.child, scenes[1].accel.child)
+    else:
+        bvh = chip_smoke.deep_tree(chip_smoke.DEEP_LEVELS, 6)
+        assert bvh.max_depth == chip_smoke.DEEP_LEVELS
+        assert bvh_build.build_tiles(bvh.nodes.numpy(), np.zeros(
+            (bvh.n_nodes, 8), np.int32), bvh.n_nodes) is None
+    assert bvh.child.dtype == torch.int32
+    assert torch.equal(bvh.child, skip_link_children(bvh.nodes, bvh.n_nodes))
+    own = slot_children(bvh.nodes, torch.arange(bvh.n_nodes))
+    in_order = own.gather(1, (own < 0).int().argsort(dim=1, stable=True))
+    assert torch.equal(in_order, bvh.child.long())
+    assert int((bvh.child[:, 1] >= 0).sum()) > 5
+
+
+def _mirror_sets(tscene):
+    import chip_smoke
+    opts = load_scene_string(terrain_scene_text())[1]
+    cam = chip_smoke.camera_rays(tscene, opts, "cpu")
+    return {"camera": cam, "random": torch.from_numpy(make_rays(1200, 13))}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("walk", ["tiles", "rows"])
+def test_descent_mirror_is_bit_equal(scenes, walk, any_hit):
+    """The descent by child ids enters the nodes the skip-link walk enters,
+    in the same order, so its t and ids equal traverse_tiles_ref's /
+    traverse_rows_ref's bit for bit on the terrain's camera and random
+    rays, in both modes; it moves to fewer nodes than the cursor steps
+    (the tile walk: exactly the nodes the plain walk enters; the row walk:
+    those plus the children whose re-test on entry fails)."""
+    _, tscene = scenes
+    a = tscene.accel
+    for label, rays in _mirror_sets(tscene).items():
+        if walk == "tiles":
+            t0, id0, c = bvh_cuda.traverse_tiles_ref(
+                a.nodesT, a.nodeskip, a.nodemeta, rays, nn=a.n_nodes,
+                any_hit=any_hit, with_counts=True)
+            t1, id1, steps, entered, _ = descent_mirror(
+                a.nodesT, a.child, rays, a.n_nodes, any_hit, rows=False)
+            assert int(steps.sum()) == (c["slab"] + c["tri"]) // 8
+            cursor = c["steps"]
+        else:
+            t0, id0, c = bvh_cuda.traverse_rows_ref(
+                a.nodes, rays, nn=a.n_nodes, any_hit=any_hit,
+                with_counts=True)
+            t1, id1, steps, entered, _ = descent_mirror(
+                a.nodes, None, rays, a.n_nodes, any_hit, rows=True)
+            assert int(entered.sum()) == c["entered"]
+            cursor = c["slab"]
+        assert torch.equal(t0, t1) and torch.equal(id0, id1), label
+        assert int((id0 >= 0).sum()) > 100, label
+        assert int(steps.sum()) < cursor / 2, (label, steps.sum(), cursor)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_descent_mirror_deep_tree(any_hit):
+    """On chip_smoke's hand-built 40-level tree the row walk's descent
+    needs more stack entries than the kernel keeps in local memory (the
+    scratch path, sized by rows_stack_scratch) and still equals
+    traverse_rows_ref bit for bit."""
+    import chip_smoke
+    bvh = chip_smoke.deep_tree(chip_smoke.DEEP_LEVELS, 6)
+    rays = torch.from_numpy(chip_smoke.deep_rays(1000, 7))
+    t0, id0 = bvh_cuda.traverse_rows_ref(bvh.nodes, rays, nn=bvh.n_nodes,
+                                         any_hit=any_hit)
+    t1, id1, _, _, deepest = descent_mirror(bvh.nodes, None, rays,
+                                            bvh.n_nodes, any_hit, rows=True)
+    assert torch.equal(t0, t1) and torch.equal(id0, id1)
+    assert int((id0 >= 0).sum()) > 300
+    assert bvh_cuda.ROWS_LOCAL_LEVELS < deepest <= bvh.max_depth
+    scratch = bvh_cuda.rows_stack_scratch(bvh.max_depth, 4, "cpu")
+    assert scratch.shape == (bvh.max_depth - bvh_cuda.ROWS_LOCAL_LEVELS, 4)
+
+
+def test_rows_stack_scratch_sizing(monkeypatch):
+    """The row walk's wrapper keeps ROWS_LOCAL_LEVELS stack levels in the
+    kernel's local memory and sizes a scratch tensor, by ray, for a deeper
+    tree's other levels (shown with the cap lowered to 3); the kernel's own
+    cap (bvh_rows.cu kLocalLevels) is the wrapper's."""
+    assert bvh_cuda.rows_stack_scratch(32, 10, "cpu") is None
+    monkeypatch.setattr(bvh_cuda, "ROWS_LOCAL_LEVELS", 3)
+    assert bvh_cuda.rows_stack_scratch(3, 10, "cpu") is None
+    s = bvh_cuda.rows_stack_scratch(40, 10, "cpu")
+    assert s.shape == (37, 10) and s.dtype == torch.int32
+    with open(bvh_cuda.ROWS_SRC) as f:
+        assert "constexpr int kLocalLevels = 32;" in f.read()
+
+
+def test_row_walk_needs_the_depth(scenes):
+    """traverse_rows sizes the kernel's stack from the tree's recorded depth
+    and refuses a BVH without one (BvhAccel.max_depth None); with it, the
+    front end on CPU tensors is the plain version's walk."""
+    import chip_smoke
+    _, tscene = scenes
+    a = tscene.accel
+    assert BvhAccel().max_depth is None
+    rays = torch.from_numpy(make_rays(300, 5))
+    with pytest.raises(ValueError, match="max_depth"):
+        bvh_cuda.traverse_rows(a.nodes, rays, nn=a.n_nodes, max_depth=None)
+    t, ids = bvh_cuda.traverse_rows(a.nodes, rays, nn=a.n_nodes,
+                                    max_depth=a.max_depth)
+    t0, id0 = bvh_cuda.traverse_rows_ref(a.nodes, rays, nn=a.n_nodes)
+    assert torch.equal(t, t0) and torch.equal(ids, id0)
+    deep = chip_smoke.deep_tree(chip_smoke.DEEP_LEVELS, 6)
+    assert deep.max_depth > bvh_cuda.ROWS_LOCAL_LEVELS
+
+
+def test_bindings_match_the_c_interfaces(monkeypatch):
+    """Each wrapper's ctypes argument types are the parameter types of its
+    C entry point in the checkout's source, in order (a pointer where the
+    source has one, an int where it has an int), so a changed interface
+    cannot be called with the old arguments. The library is stood in for
+    (no nvcc here): only the binding is held."""
+    import ctypes
+    import types
+    import chip_smoke
+    names = ("bvh_tiles_launch", "bvh_rows_launch", "bvh_instanced_launch")
+    monkeypatch.setattr(bvh_cuda, "build", lambda src: types.SimpleNamespace(
+        **{n: types.SimpleNamespace() for n in names}))
+    for src, name, entry in (
+            (bvh_cuda.KERNEL_SRC, names[0], bvh_cuda._tiles_entry),
+            (bvh_cuda.ROWS_SRC, names[1], bvh_cuda._rows_entry),
+            (bvh_cuda.ROWS_SRC, names[2], bvh_cuda._instanced_entry)):
+        params = chip_smoke.c_interface(src, name).split(", ")
+        assert entry().argtypes == [
+            ctypes.c_void_p if p.endswith("*") else ctypes.c_int
+            for p in params], name

@@ -157,7 +157,7 @@ def kernel_order_walk(ti, rays, any_hit):
             [c[0][3], c[1][3], c[2][3]], dim=-1)
         od = tf.rows_apply_vector(c, d[k])
         lane = torch.ones(len(k), dtype=torch.int64)
-        t, ids, visits, leaves = bvh_cuda._walk_rows(
+        t, ids, visits, leaves, _ = bvh_cuda._walk_rows(
             ti.nodes, oo, od, mint[k], window[k],
             lane * int(ti.entry_start[e]), lane * int(ti.entry_stop[e]),
             lane * int(ti.entry_block[e]) * ti.block_cap, any_hit)
@@ -348,7 +348,7 @@ def ordered_walk(ti, rays, order):
             [c[0][3], c[1][3], c[2][3]], dim=-1)
         od = tf.rows_apply_vector(c, d[k])
         lane = torch.ones(len(k), dtype=torch.int64)
-        t, ids, _, _ = bvh_cuda._walk_rows(
+        t, ids, _, _, _ = bvh_cuda._walk_rows(
             ti.nodes, oo, od, mint[k], torch.minimum(maxt[k], limit),
             lane * int(ti.entry_start[e]), lane * int(ti.entry_stop[e]),
             lane * int(ti.entry_block[e]) * ti.block_cap, False)

@@ -324,19 +324,22 @@ def test_staged_rejects_never_drop_a_hit(name):
 
 
 def test_old_interface_is_checked(tmp_path):
-    """chip_smoke --old binds an earlier mt_best.cu or bvh_rows.cu only
-    when its C interface is the one OLD_INTERFACES lists: the checkout's
-    own sources, whose interfaces differ, are refused before anything is
-    built, and a source with the listed signature is read as it."""
-    for src, (name, want) in chip_smoke.OLD_INTERFACES.items():
-        got = chip_smoke.c_interface(
-            os.path.join(ROOT, "tpuprt_torch", "ops", "csrc", src), name)
-        assert got is not None and got != want
+    """chip_smoke --old binds an earlier bvh_tiles.cu or bvh_rows.cu only
+    when every C interface OLD_INTERFACES lists for it is the listed one:
+    the checkout's own sources, whose walks' interfaces differ, are refused
+    before anything is built, and a source with the listed signatures is
+    read as it."""
+    for src, funcs in chip_smoke.OLD_INTERFACES.items():
+        own = os.path.join(ROOT, "tpuprt_torch", "ops", "csrc", src)
+        got = {name: chip_smoke.c_interface(own, name) for name in funcs}
+        assert all(got.values()) and got != funcs
         with pytest.raises(SystemExit, match="not the interface"):
-            chip_smoke.bind_old(os.path.join(ROOT, "tpuprt_torch", "ops",
-                                             "csrc"), src)
-        params = ", ".join(f"{t} a{i}" for i, t in
-                           enumerate(want.split(", ")))
-        (tmp_path / src).write_text(
-            f'extern "C" int {name}({params}) {{\n  return 0;\n}}\n')
-        assert chip_smoke.c_interface(str(tmp_path / src), name) == want
+            chip_smoke.bind_old(os.path.dirname(own), src)
+        text = ""
+        for name, want in funcs.items():
+            params = ", ".join(f"{t} a{i}" for i, t in
+                               enumerate(want.split(", ")))
+            text += f'extern "C" int {name}({params}) {{\n  return 0;\n}}\n'
+        (tmp_path / src).write_text(text)
+        for name, want in funcs.items():
+            assert chip_smoke.c_interface(str(tmp_path / src), name) == want

@@ -83,23 +83,14 @@ def pad_rows(rows):
     return out
 
 
-def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K):
-    """Re-pack skip-link rows into the param-major tile format the traversal
-    kernel walks. Row n (128 f32 lanes): lanes [8k, 8k+8) hold param k of
-    the node's 8 payload slots — interior: child j's [lo(3), hi(3)];
-    leaf: triangle j's [p0(3), e1(3), e2(3), pid]. skip and meta
-    (depth | rank<<5 | nprims<<8) are separate i32 tables.
-
-    Returns (tilesP f32[NN,128], skip i32[NN], meta i32[NN]) or None when
-    the tree is deeper than the walk's per-depth mask array.
-    """
+def tree_links(rows, nn: int):
+    """Depth, rank (sibling index in emission order) and parent of each of
+    the nn preorder nodes of skip-link rows (col 6 skip, col 7 nprims),
+    from the skip links alone. Returns (depth i32[NN], rank i32[NN],
+    parent i64[NN], -1 at the root)."""
     rows = np.asarray(rows)
-    prim_ids = np.asarray(prim_ids).reshape(nn, leaf_k)
     skip = rows[:nn, 6].astype(np.int64)
     nprims = rows[:nn, 7].astype(np.int32)
-
-    # Preorder walk: depth + rank (sibling index in emission order) +
-    # parent, from the skip links alone.
     depth = np.zeros(nn, np.int32)
     rank = np.zeros(nn, np.int32)
     parent = np.full(nn, -1, np.int64)
@@ -115,6 +106,40 @@ def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K):
             top[2] += 1
         if nprims[i] == 0:
             stack.append([skip[i], i, 0])
+    return depth, rank, parent
+
+
+def child_table(rank, parent):
+    """The child-id table the tile walk descends by: i32[NN, BRANCH], entry
+    [n, r] the node id of n's child of rank r, -1 where there is none (a
+    leaf's row is all -1). Raises on a node with more than BRANCH children, which
+    the row format (8 child slots) cannot hold."""
+    nn = len(rank)
+    if rank.max(initial=0) >= BRANCH:
+        raise ValueError(f"a node has more than {BRANCH} children")
+    child = np.full((nn, BRANCH), -1, np.int32)
+    nonroot = parent >= 0
+    child[parent[nonroot], rank[nonroot]] = np.nonzero(nonroot)[0]
+    return child
+
+
+def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K, links=None):
+    """Re-pack skip-link rows into the param-major tile format the traversal
+    kernel walks. Row n (128 f32 lanes): lanes [8k, 8k+8) hold param k of
+    the node's 8 payload slots — interior: child j's [lo(3), hi(3)];
+    leaf: triangle j's [p0(3), e1(3), e2(3), pid]. skip and meta
+    (depth | rank<<5 | nprims<<8) are separate i32 tables. `links`:
+    tree_links(rows, nn), computed here when not given.
+
+    Returns (tilesP f32[NN,128], skip i32[NN], meta i32[NN]) or None when
+    the tree is deeper than the walk's per-depth stack.
+    """
+    rows = np.asarray(rows)
+    prim_ids = np.asarray(prim_ids).reshape(nn, leaf_k)
+    skip = rows[:nn, 6].astype(np.int64)
+    nprims = rows[:nn, 7].astype(np.int32)
+    depth, rank, parent = links if links is not None else \
+        tree_links(rows, nn)
     if nn and int(depth.max()) >= MAX_TILE_DEPTH:
         return None
     if rank.max(initial=0) >= BRANCH:
@@ -149,9 +174,10 @@ def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K):
 
 def build_bvh(tri) -> BvhAccel:
     """BVH over a host TriangleTable (numpy-backed tensors): the rows,
-    padded to NODE_COLS, and the tile format, or no tiles (nodesT None)
-    when build_tiles rejects the tree; the traversal then walks the rows
-    (ops/bvh_cuda.intersect)."""
+    padded to NODE_COLS, the tree's depth (the row walk's stack), the
+    child-id table the tile walk descends by, and the tile format, or no
+    tiles (nodesT None) when build_tiles rejects the tree; the traversal
+    then walks the rows (ops/bvh_cuda.intersect)."""
     idx = tri.idx.numpy()
     verts = tri.verts.numpy()
     pts = verts[idx]                                     # [T,3,3]
@@ -160,7 +186,8 @@ def build_bvh(tri) -> BvhAccel:
     tri9 = np.concatenate([verts[idx[:, 0]], verts[idx[:, 1]],
                            verts[idx[:, 2]]], axis=1).astype(np.float32)
     rows, prim_ids, nn = build_rows(lo, hi, 0, tri9)
-    built = build_tiles(rows, prim_ids, nn, LEAF_K)
+    links = tree_links(rows, nn)
+    built = build_tiles(rows, prim_ids, nn, LEAF_K, links)
     tiles = nskip = nmeta = None
     if built is not None:
         tiles, nskip, nmeta = (torch.from_numpy(a) for a in built)
@@ -171,4 +198,6 @@ def build_bvh(tri) -> BvhAccel:
         bounds_hi=torch.from_numpy(hi.max(0) + pad),
         nodes=torch.from_numpy(pad_rows(rows)),
         tri9=torch.from_numpy(tri9), nodesT=tiles, nodeskip=nskip,
-        nodemeta=nmeta, n_nodes=nn, leaf_k=LEAF_K, n_quadrics=0)
+        nodemeta=nmeta, child=torch.from_numpy(child_table(*links[1:])),
+        max_depth=int(links[0].max(initial=0)), n_nodes=nn, leaf_k=LEAF_K,
+        n_quadrics=0)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import shutil
 
@@ -25,6 +26,7 @@ from ..core import transform as tf
 from ..native import build_shared
 
 MAXD = 32          # per-depth mask slots (build_tiles rejects deeper trees)
+ROWS_LOCAL_LEVELS = 32   # bvh_rows.cu kLocalLevels (stack levels, local)
 _BIG = 1e30
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -41,8 +43,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+@functools.cache
 def _nvcc_cmd():
-    """nvcc from PATH, else from the toolkit's default location."""
+    """nvcc from PATH, else from the toolkit's default location. Resolved
+    once a process: every launch looks its library up by this command, so
+    a launch does not search PATH."""
     return [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"] + NVCC_FLAGS
 
 
@@ -60,11 +65,12 @@ def _bind(src, name, argtypes):
 
 def _tiles_entry():
     return _bind(KERNEL_SRC, "bvh_tiles_launch",
-                 [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P])
+                 [_P, _P, _P, _I, _I, _I, _P, _P, _P])
 
 
 def _rows_entry():
-    return _bind(ROWS_SRC, "bvh_rows_launch", [_P, _P, _I, _I, _I, _P, _P, _P])
+    return _bind(ROWS_SRC, "bvh_rows_launch",
+                 [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P])
 
 
 def _instanced_entry():
@@ -110,32 +116,37 @@ def _launch(name, fn, *args):
     launches[name] += 1
 
 
-def _check(nodesT, nodeskip, nodemeta, rays, nn):
+def _check(nodesT, nodeskip, nodemeta, child, rays, nn):
     _check_tensors(rays.device, ("nodesT", nodesT, torch.float32),
                    ("nodeskip", nodeskip, torch.int32),
                    ("nodemeta", nodemeta, torch.int32),
+                   ("child", child, torch.int32),
                    ("rays", rays, torch.float32))
     if nodesT.dim() != 2 or nodesT.shape[1] != 128 or \
             nodesT.shape[0] < nn or nodeskip.shape != (nodesT.shape[0],) or \
             nodemeta.shape != (nodesT.shape[0],):
         raise ValueError("node tables must be f32[NN,128], i32[NN], i32[NN]")
+    if child.dim() != 2 or child.shape[1] != 8 or child.shape[0] < nn:
+        raise ValueError("child must be i32[NN,8] (accel/bvh_build."
+                         "child_table)")
     _check_rays(rays)
 
 
-def traverse_tiles(nodesT, nodeskip, nodemeta, rays, *, nn: int,
+def traverse_tiles(nodesT, nodeskip, nodemeta, child, rays, *, nn: int,
                    any_hit: bool = False):
     """Nearest (or any) hit of packed rays f32[8,N] against the tile-format
     BVH. Returns (t f32[N], id i32[N], -1 = miss). CUDA tensors launch the
-    kernel; CPU tensors run the plain version."""
-    _check(nodesT, nodeskip, nodemeta, rays, nn)
-    if not _on_card(rays, nodesT):
+    kernel, which descends by the child-id table `child` and reads neither
+    skip nor meta; CPU tensors run the plain version, the skip-link walk
+    (bit-identical: both enter the same nodes in the same order)."""
+    _check(nodesT, nodeskip, nodemeta, child, rays, nn)
+    if not _on_card(rays, nodesT, child):
         return traverse_tiles_ref(nodesT, nodeskip, nodemeta, rays, nn=nn,
                                   any_hit=any_hit)
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     ids = torch.empty(n, dtype=torch.int32, device=rays.device)
-    _launch("bvh_tiles", _tiles_entry(),
-            nodesT.data_ptr(), nodeskip.data_ptr(), nodemeta.data_ptr(),
+    _launch("bvh_tiles", _tiles_entry(), nodesT.data_ptr(), child.data_ptr(),
             rays.data_ptr(), n, nn, int(any_hit), t.data_ptr(),
             ids.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
     return t, ids
@@ -152,7 +163,8 @@ def traverse_tiles_ref(nodesT, nodeskip, nodemeta, rays, *, nn: int,
     per ray, one gather of its node row per step, until every cursor
     reaches NN. Rays whose walk ended drop out of the active set.
     with_counts also returns the work done: dict(slab=ray-box tests,
-    tri=ray-triangle tests), 8 of one or the other per entered node."""
+    tri=ray-triangle tests), 8 of one or the other per entered node, and
+    steps=the cursor's steps, entered or not."""
     n = rays.shape[1]
     dev = rays.device
     o = rays[0:3].T
@@ -167,7 +179,7 @@ def traverse_tiles_ref(nodesT, nodeskip, nodemeta, rays, *, nn: int,
     masks = torch.zeros((n, MAXD + 2), dtype=torch.int64, device=dev)
     bit = 1 << torch.arange(8, device=dev)
     act = torch.arange(n, device=dev)[node < nn]
-    counts = dict(slab=0, tri=0)
+    counts = dict(slab=0, tri=0, steps=0)
     while act.numel():
         nd = node[act]
         mt = nodemeta[nd].long()
@@ -242,6 +254,7 @@ def traverse_tiles_ref(nodesT, nodeskip, nodemeta, rays, *, nn: int,
         if with_counts:
             counts["slab"] += 8 * int(tested.sum())
             counts["tri"] += 8 * int(do_leaf.sum())
+            counts["steps"] += int(nd.numel())
     if with_counts:
         return best_t, best_id, counts
     return best_t, best_id
@@ -253,23 +266,45 @@ def _check_rows(nodes, nn):
                          "pad_rows)")
 
 
-def traverse_rows(nodes, rays, *, nn: int, any_hit: bool = False):
+def rows_stack_scratch(max_depth: int, n: int, device):
+    """The row walk's stack levels past its ROWS_LOCAL_LEVELS local ones,
+    for a tree `max_depth` deep (the descent keeps at most one entry per
+    ancestor of the node it is at, and a node has at most max_depth):
+    i32[max_depth - ROWS_LOCAL_LEVELS, n], laid out by ray, or None when
+    the local levels hold the tree."""
+    extra = max_depth - ROWS_LOCAL_LEVELS
+    if extra <= 0:
+        return None
+    return torch.empty((extra, n), dtype=torch.int32, device=device)
+
+
+def traverse_rows(nodes, rays, *, nn: int, max_depth: int,
+                  any_hit: bool = False):
     """Nearest (or any) hit of packed rays f32[8,N] against the row-format
     BVH nodes f32[>=NN,128], walking node ids [0, NN). Returns (t f32[N],
-    id i32[N], -1 = miss). CUDA tensors launch bvh_rows.cu's row walk; CPU
-    tensors run the plain version."""
+    id i32[N], -1 = miss). CUDA tensors launch bvh_rows.cu's row walk,
+    which descends by the child ids in its interior rows (cols 8..15)
+    with a stack sized from the tree's depth `max_depth` (BvhAccel.
+    max_depth; rows_stack_scratch, any depth; a tree deeper than that
+    traps the kernel); CPU tensors run the plain version, the skip-link
+    walk (bit-identical)."""
     _check_tensors(rays.device, ("nodes", nodes, torch.float32),
                    ("rays", rays, torch.float32))
     _check_rows(nodes, nn)
     _check_rays(rays)
+    if max_depth is None or max_depth < 0:
+        raise ValueError(f"max_depth must be the tree's depth, got "
+                         f"{max_depth}")
     if not _on_card(rays, nodes):
         return traverse_rows_ref(nodes, rays, nn=nn, any_hit=any_hit)
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     ids = torch.empty(n, dtype=torch.int32, device=rays.device)
+    scratch = rows_stack_scratch(max_depth, n, rays.device)
     _launch("bvh_rows", _rows_entry(), nodes.data_ptr(), rays.data_ptr(), n,
-            nn, int(any_hit), t.data_ptr(), ids.data_ptr(),
-            torch.cuda.current_stream(rays.device).cuda_stream)
+            nn, int(any_hit), max_depth,
+            None if scratch is None else scratch.data_ptr(), t.data_ptr(),
+            ids.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
     return t, ids
 
 
@@ -295,8 +330,9 @@ def _walk_rows(nodes, o, d, mint, maxt, start, stop, base, any_hit):
     lane k walks node ids [start[k], stop[k]), node n of lane k stored at
     row base[k] + n - start[k]. One gather of each active lane's row per
     step; lanes whose walk ended drop out of the active set. Returns
-    (best_t, best_id, visits, leaves): per lane, the nodes whose box it
-    tested and the leaves whose 8 triangles it tested (i64[n] each)."""
+    (best_t, best_id, visits, leaves, entered): per lane, the nodes whose
+    box it tested, the leaves whose 8 triangles it tested and the nodes
+    whose box test passed (i64[n] each)."""
     n = o.shape[0]
     dev = o.device
     inv = _safe_inv(d)
@@ -305,6 +341,7 @@ def _walk_rows(nodes, o, d, mint, maxt, start, stop, base, any_hit):
     node = start.clone()
     visits = torch.zeros(n, dtype=torch.int64, device=dev)
     leaves = torch.zeros_like(visits)
+    entered = torch.zeros_like(visits)
     act = torch.arange(n, device=dev)[node < stop]
     while act.numel():
         nd = node[act]
@@ -367,22 +404,25 @@ def _walk_rows(nodes, o, d, mint, maxt, start, stop, base, any_hit):
             keep = keep & (best_id[act] < 0)
         visits[act] += 1
         leaves[li] += 1
+        entered[act] += hit.long()
         act = act[keep]
-    return best_t, best_id, visits, leaves
+    return best_t, best_id, visits, leaves, entered
 
 
 def traverse_rows_ref(nodes, rays, *, nn: int, any_hit: bool = False,
                       with_counts: bool = False):
     """traverse_rows in plain torch ops (the walk of [0, NN) from row 0 for
-    every ray). with_counts also returns dict(slab=, tri=): the ray-box and
-    ray-triangle tests of the walk."""
+    every ray). with_counts also returns dict(slab=, tri=, entered=): the
+    ray-box and ray-triangle tests of the walk and the nodes whose box test
+    passed."""
     n = rays.shape[1]
     zero = torch.zeros(n, dtype=torch.int64, device=rays.device)
-    t, ids, visits, leaves = _walk_rows(
+    t, ids, visits, leaves, entered = _walk_rows(
         nodes, rays[0:3].T, rays[3:6].T, rays[6], rays[7], zero,
         torch.full_like(zero, nn), zero, any_hit)
     if with_counts:
-        return t, ids, dict(slab=int(visits.sum()), tri=8 * int(leaves.sum()))
+        return t, ids, dict(slab=int(visits.sum()), tri=8 * int(leaves.sum()),
+                            entered=int(entered.sum()))
     return t, ids
 
 
@@ -494,8 +534,9 @@ def traverse_instanced_ref(nodes, entry_block, entry_inst, entry_start,
     od = tf.rows_apply_vector(c, d[pr])
     start, stop = entry_start[pe].long(), entry_stop[pe].long()
     base = entry_block[pe].long() * cap
-    bt, bi, visits, leaves = _walk_rows(nodes, oo, od, mint[pr], maxt[pr],
-                                        start, stop, base, any_hit)
+    bt, bi, visits, leaves, _ = _walk_rows(nodes, oo, od, mint[pr],
+                                           maxt[pr], start, stop, base,
+                                           any_hit)
 
     t_out = torch.full((n,), _BIG, dtype=torch.float32, device=dev)
     id_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -523,7 +564,7 @@ def traverse_instanced_ref(nodes, entry_block, entry_inst, entry_start,
         tfin = torch.minimum(maxt, t_out)[pr]
         need = _slab_hit(entry_bbox[pe], o[pr], inv[pr], mint[pr],
                          tfin * (1.0 + 1e-6))
-        _, _, visits, leaves = _walk_rows(
+        _, _, visits, leaves, _ = _walk_rows(
             nodes, oo[need], od[need], mint[pr][need], tfin[need],
             start[need], stop[need], base[need], any_hit)
     n_need = int(need.sum())
@@ -555,10 +596,11 @@ def sort_key(lo, hi, o, d):
 
 
 def walked_only(bvh):
-    """`bvh` without the format `intersect` does not walk: the tiles when
-    it has them, else the rows."""
+    """`bvh` without what `intersect` does not read: the tiles and their
+    child-id table `bvh.child` when it has tiles, else the rows (whose
+    interior rows hold their children's ids)."""
     if bvh.nodesT is None:
-        return bvh
+        return dataclasses.replace(bvh, child=None)
     return dataclasses.replace(bvh, nodes=None)
 
 
@@ -582,11 +624,12 @@ def intersect(bvh, o, d, mint, maxt, any_hit: bool = False,
         rays8 = rays8[order]
     rays = rays8.T.contiguous()
     if bvh.nodesT is not None:
-        t, ids = traverse_tiles(bvh.nodesT, bvh.nodeskip, bvh.nodemeta, rays,
-                                nn=bvh.n_nodes, any_hit=any_hit)
+        t, ids = traverse_tiles(bvh.nodesT, bvh.nodeskip, bvh.nodemeta,
+                                bvh.child, rays, nn=bvh.n_nodes,
+                                any_hit=any_hit)
     else:
         t, ids = traverse_rows(bvh.nodes, rays, nn=bvh.n_nodes,
-                               any_hit=any_hit)
+                               max_depth=bvh.max_depth, any_hit=any_hit)
     if order is not None:
         t, ids = unsort(order, t, ids)
     return t, ids, ids >= 0

@@ -7,8 +7,9 @@ node metadata) becomes a dict of its fields. Fields the port's tables do
 not have must be empty (no volumes, images or environment maps), and the
 accelerator must be a BVH or none (brute force); anything else raises
 NotImplementedError. The BVH's rows are padded to 128 columns, as the port
-stores them; an instance table gets the port's top-level BVH over its
-entries (accel/instances.build_top), which tpuprt's does not carry.
+stores them, and get the port's child-id table and depth
+(accel/bvh_build.child_table); an instance table gets the port's top-level
+BVH over its entries (accel/instances.build_top). tpuprt carries neither.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..accel.bvh_build import pad_rows
+from ..accel.bvh_build import child_table, pad_rows, tree_links
 from ..accel.instances import build_top
 from ..textures.graph import TexGraph, TexNodeMeta
 from . import data as D
@@ -46,7 +47,10 @@ def _build(cls, d: dict, device, where: str):
     extra = [k for k, v in d.items() if k not in names and not _empty(v)]
     extra = [k for k in extra if k not in _TPU_ONLY.get(cls, ())]
     if cls is D.BvhAccel:
-        d = dict(d, nodes=pad_rows(d["nodes"]))
+        depth, rank, parent = tree_links(d["nodes"], d["n_nodes"])
+        d = dict(d, nodes=pad_rows(d["nodes"]),
+                 child=child_table(rank, parent),
+                 max_depth=int(depth.max(initial=0)))
     if cls is D.InstanceTable:
         d = dict(d, top_nodes=build_top(d["entry_bbox"]))
     if extra:

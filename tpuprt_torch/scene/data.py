@@ -144,14 +144,19 @@ class BvhAccel:
     """The 8-wide skip-link BVH (accel/bvh_build.py) in two formats.
 
     ``nodes``: the builder's preorder rows, padded to 128 columns: [lo(3),
-    hi(3), skip, nprims, leaf: 8 x 9 inlined triangle vertices (cols
+    hi(3), skip, nprims, interior: the children's ids by slot (cols
+    8..15, -1 = empty), leaf: 8 x 9 inlined triangle vertices (cols
     8..79) + 8 prim ids (cols 80..87)]; the row walk (ops/csrc/bvh_rows.cu)
     reads them. ``nodesT``: the tile format (accel/bvh_build.build_tiles),
     rows param-major, lanes [8k, 8k+8) = param k of the node's 8 payload
     slots (interior: child boxes lo/hi; leaf: triangle p0/e1/e2/pid), with
     ``nodemeta`` packing depth | rank<<5 | nprims<<8; None when the tree is
-    too deep for the tile walk. The front end walks the tiles when there
-    are any, else the rows; render() copies only that format to the
+    too deep for the tile walk. ``child``: the child-id table the tile walk
+    descends by (accel/bvh_build.child_table: [n, r] = n's child of rank
+    r, -1 where there is none). ``max_depth``: the tree's depth, which
+    sizes the row walk's stack (None: not recorded, and the row walk
+    refuses the tree). The front end walks the tiles when there are any,
+    else the rows; render() copies only what that walk reads to the
     card."""
     bounds_lo: torch.Tensor = None   # f32[3]
     bounds_hi: torch.Tensor = None   # f32[3]
@@ -160,6 +165,8 @@ class BvhAccel:
     nodesT: torch.Tensor = None      # f32[NN, 128] or None
     nodeskip: torch.Tensor = None    # i32[NN]
     nodemeta: torch.Tensor = None    # i32[NN]
+    child: torch.Tensor = None       # i32[NN, 8]
+    max_depth: int = None
     n_nodes: int = 1
     leaf_k: int = 8
     n_quadrics: int = 0
