@@ -52,6 +52,18 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    any-hit mode, the image inside the band of phase 4. Then the render's
    real shadow batch (393K rays) through mt_best in any-hit mode against
    the plain version.
+11. parity -- mt_best on bench3 (scenes/bench3.pbrt: 10 triangles, a disk
+   light, a glass and a mirror sphere): its 256x256x32 camera rays, and the
+   NEE shadow batch (any hit) and the MIS BSDF-strategy batch (nearest) of
+   the render's pass with the most live shadow rays, bit for bit against
+   the plain version.
+12. render -- config3 (the same Cornell box at 96x96) at 64 spp through
+   load_scene -> render -> write_exr in path mode: mt_best launched in both
+   modes, the image finite and inside test_golden's band around
+   scenes/golden3.exr.
+13. render -- bench3 at its full size (256x256 x 32 spp, path mode, depth
+   5) with bench.py's pool: mt_best launched in both modes, the image
+   finite; its walls and rays/s by bench.py's convention.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -65,8 +77,13 @@ each, at 128 lanes a clock on each SM). Then the card's name and power
 limit, the kernel table, and as the last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it exits nonzero and prints no result.
 ``--exr PATH`` also keeps config4_big's image; ``--profile`` profiles one
-more render of config4_big, of the rocks scene, of config2/none and of
-config4_big without an accelerator (phase "profile").
+more render of config4_big, of the rocks scene and of config2/none (phase
+"profile"; for the brute-force scenes mt_best's device ms by mode), and
+profiles config2/none, config4_big without an accelerator and bench3
+with their visibility segments dispatched as the port does (split) and
+fused into one launch a bounce as it did before it followed tpuprt's
+dispatch (phase "dispatch": config2/none in the turns split, fused,
+fused, split, the others split, fused).
 
 ``--old DIR`` runs no smoke phase: it times the earlier ``bvh_tiles.cu``
 and ``bvh_rows.cu`` of commit 2a258fc (the skip-link walks), copied into
@@ -91,6 +108,9 @@ SCENE = os.path.join(ROOT, "scenes", "config4_big.pbrt")
 GOLDEN = os.path.join(ROOT, "scenes", "bench4.exr")
 CONFIG2 = os.path.join(ROOT, "scenes", "config2.pbrt")
 GOLDEN2 = os.path.join(ROOT, "scenes", "golden2.exr")
+CONFIG3 = os.path.join(ROOT, "scenes", "config3.pbrt")
+GOLDEN3 = os.path.join(ROOT, "scenes", "golden3.exr")
+BENCH3 = os.path.join(ROOT, "scenes", "bench3.pbrt")
 
 # bench.py's rays/s convention for config4_big: camera + shadow rays of the
 # reference pbrt-v1 run (bench.py CONFIG4_REF_RAYS).
@@ -103,6 +123,12 @@ BAND_MEAN = 2 * 0.000317
 # config2 against golden2.exr: the limits tests/test_golden.py holds
 # tpuprt.render to (test_golden2_grid_mesh_arealight).
 BAND2_REL, BAND2_MEAN = 0.04, 0.015
+# config3 at 64 spp against golden3.exr: test_golden3_path_cornell's
+# sample count and limits.
+CONFIG3_SPP, BAND3_REL, BAND3_MEAN = 64, 0.10, 0.03
+# bench.py's rays/s convention for bench3: camera + shadow rays of the
+# reference pbrt-v1 run (bench.py CONFIG3_REF_RAYS).
+BENCH3_REF_RAYS = 2.114e6 + 3.363e6
 MT_CONFIG4_RAYS = 1 << 17  # config4_big camera rays held against mt_best
 T_RTOL = 1e-6             # kernel vs plain: t agreement (relative)
 # timed(): the spin before each timed call, about 8 ms at the H100's clock,
@@ -635,19 +661,34 @@ def patched(module, name, fn):
         setattr(module, name, real)
 
 
-def capture_rays(scene, opts, device, module, name, at):
+def capture_rays(scene, opts, device, module, name, at, period=None):
     """The packed rays of one render's calls of the kernel wrapper
     module.name (rays its argument number `at`), as {any_hit: rays of the
     call with the most rays that have a non-empty window} (the first passes
-    cover the sky, where no shadow ray is traced). Not a main-path run: the
-    counts are reset before that."""
+    cover the sky, where no shadow ray is traced). With `period` p, when
+    the render calls the wrapper p times a pass: {(k, any_hit): rays of the
+    k-th call of one pass}, the pass whose any-hit calls have the most such
+    rays. Not a main-path run: the counts are reset before that."""
     from tpuprt_torch import render as R
-    got = {}
+    got, cur, n = {}, {}, [0, -1]
 
     def spy(*a, **kw):
         rays, any_hit = a[at], kw.get("any_hit", False)
         live = int((rays[6] <= rays[7]).sum())
-        if live > got.get(any_hit, (-1, None))[0]:
+        if period:
+            k = n[0] % period
+            n[0] += 1
+            if k == 0:
+                cur.clear()
+                cur["live"] = 0
+            cur[(k, any_hit)] = rays.clone()
+            cur["live"] += live if any_hit else 0
+            if k == period - 1 and cur["live"] > n[1]:
+                n[1] = cur["live"]
+                got.clear()
+                got.update({key: (0, v) for key, v in cur.items()
+                            if key != "live"})
+        elif live > got.get(any_hit, (-1, None))[0]:
             got[any_hit] = (live, rays.clone())
         return real(*a, **kw)
     with patched(module, name, spy) as real:
@@ -759,23 +800,41 @@ def render_path(label, scene, opts, device, need, exr=None):
 def profile_render(label, scene, opts, device, **extra):
     """One more render under torch.profiler: device time by kernel name
     (top 12), each traversal kernel's time, and the device's idle share of
-    the render's wall time (one stream, so kernels do not overlap). Emits
-    and returns that line, with the fields `extra`."""
+    the render's wall time (one stream, so kernels do not overlap); for
+    mt_best, its launches and device ms by mode (its kernels in launch
+    order, matched to the wrapper's calls). Emits and returns that line,
+    with the fields `extra`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from tpuprt_torch import render as R
+    from tpuprt_torch.ops import mt_cuda
+    modes = []
+
+    def spy(rays, tris, any_hit=False):
+        modes.append("any" if any_hit else "nearest")
+        return real(rays, tris, any_hit=any_hit)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with patched(mt_cuda, "mt_best", spy) as real, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         R.render(scene, opts, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
+    kernels, mt_events = {}, []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us() / 1e3
+            if "mt_best_kernel" in ev.name:
+                mt_events.append((ev.time_range.start,
+                                  ev.time_range.elapsed_us() / 1e3))
+    by_mode = None
+    if modes and len(mt_events) == len(modes):
+        by_mode = {m: {"launches": 0, "ms": 0.0} for m in ("nearest", "any")}
+        for m, (_, ms) in zip(modes, sorted(mt_events)):
+            by_mode[m]["launches"] += 1
+            by_mode[m]["ms"] += ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     trav = {name: sum(v for k, v in kernels.items() if name + "_kernel" in k)
@@ -784,9 +843,47 @@ def profile_render(label, scene, opts, device, **extra):
              device_busy_ms=busy,
              device_idle_share=1.0 - busy / (wall * 1e3), traversal_ms=trav,
              traversal_share_of_busy=sum(trav.values()) / max(busy, 1e-9),
+             mt_best_by_mode=by_mode, mt_best_calls=len(modes),
+             mt_best_kernel_events=len(mt_events),
              n_device_ops=len(kernels), top_ms=[[k[:80], v] for k, v in top])
     emit(**r)
     return r
+
+
+def fused_visibility(scene, segs, needs):
+    """batched_visibility as the port dispatched the segments at commit
+    e8747c9, before it followed tpuprt's: every segment of a bounce in one
+    launch, nearest if any segment needs it, on every scene. Only for the
+    comparison of phase "dispatch"."""
+    import torch
+    from tpuprt_torch.accel import intersect as isect
+    cat = [torch.cat([sg[i] for sg in segs]) for i in range(4)]
+    sizes = [sg[0].shape[0] for sg in segs]
+    if "nearest" in needs:
+        t, pid, hit = isect.intersect_ids(scene, *cat)
+        return [(a, b, c) if nd == "nearest" else c for nd, a, b, c in
+                zip(needs, t.split(sizes), pid.split(sizes),
+                    hit.split(sizes))]
+    return list(isect.occluded(scene, *cat).split(sizes))
+
+
+def dispatch_turns(label, scene, opts, device,
+                   order=("split", "fused", "fused", "split")):
+    """Profiled renders (profile_render) with the visibility segments
+    dispatched as the port does (split: without an accelerator, each in its
+    own mode) and as fused_visibility, in `order`."""
+    from tpuprt_torch.integrators import common
+    out = {}
+    for k in order:
+        with contextlib.ExitStack() as stack:
+            if k == "fused":
+                stack.enter_context(patched(common, "batched_visibility",
+                                            fused_visibility))
+            r = profile_render(label, scene, opts, device, dispatch=k)
+        out.setdefault(k, []).append({f: r[f] for f in (
+            "wall_ms", "device_busy_ms", "device_idle_share",
+            "mt_best_by_mode")})
+    emit(phase="dispatch", scene=label, order=list(order), runs=out)
 
 
 # The C interfaces of the earlier bvh_tiles.cu and bvh_rows.cu (commit
@@ -1256,7 +1353,8 @@ def main(argv=None):
          rays_per_s=CONFIG4_REF_RAYS / wall)
     assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
     if args.profile:
-        profile_render("config4_big/none", none_scene, opts, device)
+        dispatch_turns("config4_big/none", none_scene, opts, device,
+                       ("split", "fused"))
     # The render's own shadow batch (three fused any-hit segments of 2^17
     # lanes) through mt_best in any-hit mode.
     shadow = capture_rays(none_scene, opts, device, mt_cuda, "mt_best",
@@ -1264,6 +1362,72 @@ def main(argv=None):
     res["mt_best"] += mt_parity("config4_big/shadow", c4_tris, shadow,
                                 reps=3, modes=(True,), plain_reps=1)
     del shadow, c4_tris
+
+    # 11. mt_best vs its plain version on bench3: its camera rays, and one
+    # pass's NEE shadow batch (any hit) and BSDF-strategy batch (nearest)
+    # as the render hands them to the kernel. A pass calls mt_best three
+    # times (the bounce's rays, its shadow rays, its BSDF-strategy rays);
+    # the pass with the most live shadow rays is taken: the first pass
+    # covers the top rows, the ceiling above the down-facing light, where
+    # no shadow ray is traced.
+    t0 = time.perf_counter()
+    b3, b3_opts = load_scene(BENCH3)
+    emit(phase="load", scene="bench3", seconds=time.perf_counter() - t0,
+         triangles=b3.triangles.count, quadrics=b3.quadrics.count,
+         accel=None, integrator=b3_opts.integrator,
+         max_depth=b3_opts.max_depth)
+    assert b3.accel is None and b3_opts.integrator == "path"
+    b3_opts = b3_opts._replace(chunk_size=1 << 17, half_readback=True)
+    b3_d = to_device(b3, device)
+    b3_tris = mt_cuda.pack_table(b3_d.triangles)
+    res["mt_best"] += mt_parity("bench3/camera", b3_tris,
+                                camera_rays(b3_d, b3_opts, device),
+                                modes=(False,))
+    first = capture_rays(b3, b3_opts, device, mt_cuda, "mt_best", 0,
+                         period=3)
+    shadow = first[(1, True)]
+    res["mt_best"] += mt_parity("bench3/shadow", b3_tris, shadow,
+                                modes=(True,))
+    res["mt_best"] += mt_parity("bench3/bsdf", b3_tris, first[(2, False)],
+                                modes=(False,))
+    # What the front end's sort of any-hit rays (ray_order: key, argsort)
+    # costs per call on this batch.
+    box = (b3_d.world_bound_lo, b3_d.world_bound_hi)
+    sort_ms, _, sort_host = timed(lambda: mt_cuda.ray_order(
+        box, shadow[0:3].T, shadow[3:6].T, shadow[6], shadow[7]))
+    emit(phase="sort", scene="bench3", set="bench3/shadow",
+         rays=shadow.shape[1], ray_order_ms=sort_ms, host_ms=sort_host)
+    del b3_d, b3_tris, first, shadow
+
+    # 12. Main path, path mode: config3 at test_golden's 64 spp.
+    c3, c3_opts = load_scene(CONFIG3)
+    c3_opts = c3_opts._replace(
+        sampler=c3_opts.sampler._replace(pixelsamples=CONFIG3_SPP),
+        chunk_size=1 << 17, half_readback=True)
+    ref3, _ = read_exr(GOLDEN3)
+    rgb, launches["config3"], first_s, wall = render_path(
+        "config3", c3, c3_opts, device, ["mt_best", "mt_best_any"])
+    rel, mean = band(rgb, ref3)
+    emit(phase="render", scene="config3", shape=list(rgb.shape),
+         spp=CONFIG3_SPP, launches=launches["config3"], finite=True,
+         band_rel=rel, band_rel_limit=BAND3_REL, band_mean=mean,
+         band_mean_limit=BAND3_MEAN, first_render_s=first_s, wall_s=wall,
+         samples_per_s=c3_opts.xres * c3_opts.yres * CONFIG3_SPP / wall)
+    assert rel < BAND3_REL and mean < BAND3_MEAN, (rel, mean)
+
+    # 13. Main path, path mode at full size: bench3 with bench.py's pool.
+    rgb, launches["bench3"], first_s, wall = render_path(
+        "bench3", b3, b3_opts, device, ["mt_best", "mt_best_any"])
+    emit(phase="render", scene="bench3", shape=list(rgb.shape),
+         spp=b3_opts.sampler.pixelsamples, launches=launches["bench3"],
+         finite=True, first_render_s=first_s, wall_s=wall,
+         rays_per_s=BENCH3_REF_RAYS / wall,
+         rays_per_s_first=BENCH3_REF_RAYS / first_s,
+         samples_per_s=b3_opts.xres * b3_opts.yres *
+         b3_opts.sampler.pixelsamples / wall)
+    if args.profile:
+        dispatch_turns("config2/none", c2, c2_opts, device)
+        dispatch_turns("bench3", b3, b3_opts, device, ("split", "fused"))
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -1278,7 +1442,7 @@ def main(argv=None):
         if name == "mt_best":
             timed_on = next(r for r in rs if r["set"] == "config4_big/camera")
         src = source[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=os.path.relpath(src, ROOT),
             replaces=REPLACES[name], also_replaces=ALSO_REPLACES.get(name),
             launches=launches[path_of[name]][name],
@@ -1298,7 +1462,16 @@ def main(argv=None):
                                        "id_mismatch", "t_rel_max", "ms",
                                        "plain_ms", "bound_ms",
                                        "fmad_floor_ms")}
-                    for r in rs]))
+                    for r in rs])
+        if name == "mt_best":
+            # bench3's path: its launches by mode and its camera set.
+            b3_cam = next(r for r in rs if r["set"] == "bench3/camera")
+            entry.update(
+                bench3_launches=launches["bench3"]["mt_best"],
+                bench3_launches_any_hit=launches["bench3"]["mt_best_any"],
+                bench3_camera={k: b3_cam[k] for k in (
+                    "ms", "host_ms", "plain_ms", "bound_ms", "bound_by")})
+        kernels.append(entry)
     emit(kernels=kernels,
          library_note="no PyTorch call computes a BVH walk or a nearest "
          "ray-triangle hit")

@@ -8,6 +8,8 @@ one-sided disk area light) with Accelerator "none", at 16x16 x 2 spp.
   interpret mode, forced as test_pallas_integration forces it), and
   hit_geometry agrees at the hits (quadric and triangle alike).
 - occluded() (mt_best's any-hit mode) gives tpuprt's shadow mask.
+- The visibility rays of a bounce go to the kernels as tpuprt sends them:
+  each segment in its own mode without an accelerator, fused on a BVH.
 - The whole render matches tpuprt.render.
 - The accelerator policy, and what the slice does not cover raises.
 """
@@ -20,7 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from test_torch_bvh import assert_hits_agree, assert_tables_equal, \
-    numpy_tables
+    numpy_tables, terrain_scene_text
 from tpuprt import render as jax_render
 from tpuprt.accel import intersect as jisect
 from tpuprt.cameras import cameras as jcam
@@ -130,6 +132,41 @@ def test_occluded_matches_tpuprt(scenes, monkeypatch):
     assert 100 < want.sum() < len(want) - 100
     np.testing.assert_array_equal(
         tisect.intersect_ids(tscene, *args)[2].numpy(), want)
+
+
+@pytest.mark.parametrize("accel", ["none", "bvh"])
+def test_visibility_launches_follow_tpuprt(accel, monkeypatch):
+    """One directlighting bounce at 4x4 x 1 spp (every lane ends there).
+    Without an accelerator (config2/none) each visibility segment is its
+    own launch in its own mode, as tpuprt/integrators/common.py:166-174
+    launches them: the area light's shadow rays through mt_best's any-hit
+    mode, its BSDF-strategy rays nearest. On a BVH scene (the terrain with
+    a distant and an infinite light) the bounce's three segments go to one
+    fused any-hit launch."""
+    text = config2_none(res=4, spp=1) if accel == "none" else \
+        terrain_scene_text(res=4, spp=1)
+    scene, opts = load_scene_string(text)
+    assert (scene.accel is None) == (accel == "none")
+    calls, modes = [], []
+    for name in ("intersect_ids", "occluded"):
+        def spy(*a, _real=getattr(tisect, name), _name=name):
+            calls.append((_name, a[1].shape[0]))
+            return _real(*a)
+        monkeypatch.setattr(tisect, name, spy)
+    real = mt_cuda.mt_best
+    monkeypatch.setattr(mt_cuda, "mt_best",
+                        lambda rays, tris, any_hit=False:
+                        modes.append(any_hit) or
+                        real(rays, tris, any_hit=any_hit))
+    torch_render.render(scene, opts, device="cpu")
+    n = 4 * 4
+    if accel == "none":
+        assert calls == [("intersect_ids", n), ("occluded", n),
+                         ("intersect_ids", n)]
+        assert modes == [False, True, False]
+    else:
+        assert calls == [("intersect_ids", n), ("occluded", 3 * n)]
+        assert modes == []
 
 
 def test_hit_geometry_matches_per_ray(scenes):

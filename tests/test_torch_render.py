@@ -105,7 +105,10 @@ def test_port_imports_no_jax():
             "tpuprt_torch.scene.parser, tpuprt_torch.scene.bridge, "
             "tpuprt_torch.io.exr, tpuprt_torch.accel.instances, "
             "tpuprt_torch.accel.intersect, tpuprt_torch.ops.bvh_cuda, "
-            "tpuprt_torch.ops.mt_cuda, tpuprt_torch.shapes.quadrics; "
+            "tpuprt_torch.ops.mt_cuda, tpuprt_torch.shapes.quadrics, "
+            "tpuprt_torch.bsdf.bsdf, tpuprt_torch.materials.factory, "
+            "tpuprt_torch.integrators.common, "
+            "tpuprt_torch.integrators.path_wavefront; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

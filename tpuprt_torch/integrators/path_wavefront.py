@@ -1,6 +1,6 @@
 """Wavefront rendering with path regeneration (port of
-tpuprt/integrators/path_wavefront.py, mode "directlighting" with strategy
-"all").
+tpuprt/integrators/path_wavefront.py, modes "path" and "directlighting"
+with strategy "all").
 
 One fixed-size lane pool; the moment a lane's path ends, its radiance is
 splatted to the film and the lane restarts with the next (pixel, sample)
@@ -8,6 +8,12 @@ from a global cursor. Every random stream is a pure function of (pixel,
 sample index, bounce, purpose) with the reference's purposes and salts, so
 each camera sample computes what the JAX package computes, and the
 developed image matches it up to the order of the film's sums.
+
+Mode "path" is path.cpp:58-145: one-light MIS next-event estimation, Le
+only on the first vertex and after a specular bounce, the full BSDF
+continuation, Russian roulette with probability 0.5 from bounce 3 on.
+Mode "directlighting" is directlighting.cpp: every light at every vertex
+and a specular-only continuation.
 """
 from __future__ import annotations
 
@@ -27,7 +33,10 @@ from ..scene.data import LIGHT_AREA, SceneData
 from . import common
 
 _EPS = vm.RAY_EPSILON
-_SALT_DIRECTLIGHTING = 0xD112
+# Each mode's salt of the per-pixel hash (path_wavefront.py:220-221).
+SALTS = {"path": 0xBA5E, "directlighting": 0xD112}
+# Russian roulette from this bounce on (path_wavefront.py:434, :478).
+RR_START = 3
 
 
 def _regen(scene: SceneData, cfg, lin, seed, xres, yres, xstart, xcount,
@@ -68,25 +77,43 @@ def _direct_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
     return common.estimate_direct_multi(scene, specs, p, ns, wo, bsdf, alive)
 
 
+def _path_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
+             alive):
+    """Direct lighting for path mode: one light per lane with MIS
+    (path_wavefront.py:296-306)."""
+    u_num = smp.integrator_1d(cfg, px, py, s_idx, bounce, 10, seed)
+    ls1, ls2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 11, seed)
+    bs1, bs2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 12, seed)
+    bcs = smp.integrator_1d(cfg, px, py, s_idx, bounce, 13, seed)
+    ls3 = rng.uniform(ph, s_idx, bounce, 16)
+    return common.uniform_sample_one_light(scene, p, ns, wo, bsdf, u_num,
+                                           ls1, ls2, ls3, bs1, bs2, bcs,
+                                           alive)
+
+
 def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
           xres, yres, xstart, xcount, ystart, spp, filter_kind,
-          filter_xwidth, filter_ywidth):
-    """One wavefront pass (path_wavefront.py:181-420, directlighting): bounce
-    every live lane once, splat + regenerate finished lanes. Returns
-    (state, cursor)."""
+          filter_xwidth, filter_ywidth, mode):
+    """One wavefront pass (path_wavefront.py:181-420) in `mode` ("path" or
+    "directlighting"): bounce every live lane once, splat + regenerate
+    finished lanes. Returns (state, cursor)."""
     alive = st["alive"]
     px, py, s_idx, bounce = st["px"], st["py"], st["s_idx"], st["bounce"]
     ro, rd = st["o"], st["d"]
     throughput, L = st["throughput"], st["L"]
     specular, alpha = st["specular"], st["alpha"]
     first = bounce == 0
-    ph = rng.hash_u32(px, py, seed, _SALT_DIRECTLIGHTING)
+    path = mode == "path"
+    ph = rng.hash_u32(px, py, seed, SALTS[mode])
 
     t, pid, hit = isect.intersect_ids(scene, ro, rd, st["mint"], st["maxt"])
 
     if scene.lights.infinite_meta:
-        # Escape radiance on every miss of a live lane.
+        # Escape radiance on a miss of a live lane: in path mode only on
+        # the first vertex or after a specular bounce.
         take_le = ~hit & alive
+        if path:
+            take_le = take_le & (first | specular)
         Lesc = lt.le_escaped(scene, rd)
         L = L + torch.where(take_le[..., None], throughput * Lesc, 0.0)
         alpha = torch.where(take_le & first & torch.any(Lesc > 0, -1), 1.0,
@@ -98,23 +125,32 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     dg = isect.compute_differentials(dg, st["rx_o"], st["rx_d"],
                                      st["ry_o"], st["ry_d"], first & alive)
     if LIGHT_AREA in scene.lights.kinds_present:
-        # Emitted radiance at every live hit (path_wavefront.py:286-289).
+        # Emitted radiance at a live hit (path_wavefront.py:286-289): in
+        # path mode only on the first vertex or after a specular bounce.
+        emit_ok = alive & (first | specular) if path else alive
         Le = lt.area_emission(scene, dg["area_light"], dg["nn"], -rd)
-        L = L + torch.where(alive[..., None], throughput * Le, 0.0)
+        L = L + torch.where(emit_ok[..., None], throughput * Le, 0.0)
     bsdf = common.make_bsdf_at(scene, dg)
     p, ns = dg["p"], bsdf.nn
     wo = -rd
     if scene.lights.count > 0:
-        Ld = _direct_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx,
-                        bounce, seed, alive)
+        ld = _path_ld if path else _direct_ld
+        Ld = ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
+                alive)
         L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
 
-    # Specular-only continuation (directlighting.cpp).
-    c1 = rng.uniform(ph, s_idx, bounce, 0x5A, 1)
-    c2 = rng.uniform(ph, s_idx, bounce, 0x5A, 2)
-    c3 = rng.uniform(ph, s_idx, bounce, 0x5A, 3)
-    bs = B.sample_f(bsdf, wo, c1, c2, c3,
-                    B.SPECULAR | B.REFLECTION | B.TRANSMISSION)
+    if path:
+        # The full BSDF continuation (path_wavefront.py:319-322).
+        c1, c2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 20, seed)
+        c3 = smp.integrator_1d(cfg, px, py, s_idx, bounce, 21, seed)
+        bs = B.sample_f(bsdf, wo, c1, c2, c3, B.ALL)
+    else:
+        # Specular-only continuation (directlighting.cpp).
+        c1 = rng.uniform(ph, s_idx, bounce, 0x5A, 1)
+        c2 = rng.uniform(ph, s_idx, bounce, 0x5A, 2)
+        c3 = rng.uniform(ph, s_idx, bounce, 0x5A, 3)
+        bs = B.sample_f(bsdf, wo, c1, c2, c3,
+                        B.SPECULAR | B.REFLECTION | B.TRANSMISSION)
     cont = alive & bs["valid"] & (bs["pdf"] > 0.0) & \
         ~torch.all(bs["f"] == 0.0, dim=-1) & (bounce < max_depth)
     scale = bs["f"] * (vm.absdot(bs["wi"], ns) /
@@ -122,6 +158,13 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     throughput = torch.where(cont[..., None], throughput * scale, throughput)
     specular = torch.where(cont, bs["specular"], specular)
     alive = cont
+    if path:
+        # Russian roulette (path_wavefront.py:352-359).
+        u_rr = rng.uniform(ph, s_idx, bounce, 30)
+        do_rr = bounce >= RR_START
+        alive = alive & (~do_rr | (u_rr < 0.5))
+        throughput = torch.where((alive & do_rr)[..., None],
+                                 throughput / 0.5, throughput)
     ro, rd = p, bs["wi"]
     bounce = bounce + 1
 
@@ -190,10 +233,10 @@ def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
 def render(scene: SceneData, opts, device):
     """Full-frame wavefront render of a scene whose tables live on
     `device`. Returns (rgb, alpha) as numpy f32 arrays."""
-    if opts.integrator != "directlighting":
+    if opts.integrator not in SALTS:
         raise NotImplementedError(
-            f'integrator "{opts.integrator}" is not ported (directlighting, '
-            'strategy "all")')
+            f'integrator "{opts.integrator}" is not ported (path, and '
+            'directlighting with strategy "all")')
     lt.check(scene.lights)    # once per render: it reads a table
     film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)
@@ -214,7 +257,8 @@ def render(scene: SceneData, opts, device):
                            max_depth=opts.max_depth,
                            filter_kind=opts.filter_kind,
                            filter_xwidth=opts.filter_xwidth,
-                           filter_ywidth=opts.filter_ywidth, **kw)
+                           filter_ywidth=opts.filter_ywidth,
+                           mode=opts.integrator, **kw)
         if not bool(st["alive"].any()):
             break
     rgb, alpha = film_mod.develop(film)

@@ -323,6 +323,14 @@ class PbrtParser:
                 self._child(params, "Kd", (0.25,) * 3),
                 self._child(params, "Ks", (0.25,) * 3),
                 self._child(params, "roughness", 0.1, True)])
+        if kind == "glass":
+            return self.builder.add_material("glass", [
+                self._child(params, "Kr", (1.0,) * 3),
+                self._child(params, "Kt", (1.0,) * 3),
+                self._child(params, "index", 1.5, True)])
+        if kind == "mirror":
+            return self.builder.add_material("mirror", [
+                self._child(params, "Kr", (0.9,) * 3)])
         raise NotImplementedError(f'material "{kind}" is not ported')
 
     def _material_id(self) -> int:
@@ -476,14 +484,14 @@ class PbrtParser:
             raise NotImplementedError(
                 f'pixel filter "{self.filter_name}" is not ported')
         fw = DEFAULT_WIDTHS[self.filter_name]
-        if self.integrator_name != "directlighting":
+        if self.integrator_name not in ("directlighting", "path"):
             raise NotImplementedError(
                 f'integrator "{self.integrator_name}" is not ported')
         opts = RenderOptions(
             xres=xres, yres=yres, sampler=scfg, filter_kind=self.filter_name,
             filter_xwidth=self.filter_params.find_one("xwidth", fw[0]),
             filter_ywidth=self.filter_params.find_one("ywidth", fw[1]),
-            integrator="directlighting",
+            integrator=self.integrator_name,
             max_depth=self.integrator_params.find_one("maxdepth", 5),
             filename=fp.find_one("filename", "pbrt.exr"), crop=crop)
         return self.builder.build(), opts
