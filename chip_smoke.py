@@ -64,6 +64,20 @@ Phases, one JSON line each; any failure raises and exits nonzero:
 13. render -- bench3 at its full size (256x256 x 32 spp, path mode, depth
    5) with bench.py's pool: mt_best launched in both modes, the image
    finite; its walls and rays/s by bench.py's convention.
+14. render -- config1 as its file asks (128x128, Whitted, stratified 2x2,
+   a point light, one matte sphere: no kernel, the sphere by plain torch)
+   inside test_golden's band around scenes/golden1.exr.
+15. walk, render -- config2 as its file asks (Accelerator "grid", 128x128
+   x 32 spp): the plain grid walk timed on 2^17 of its camera rays (wall
+   on the card, DDA steps, pairs tested), then the render inside golden2's
+   band.
+16. walk, render -- config4 as its file asks (Accelerator "kdtree",
+   128x128 x 16 spp): the plain kd-restart walk timed on 2^17 camera rays,
+   nearest and any-hit, then the render inside golden4's band.
+17. render -- config5_huge, bench.py's 1M-triangle terrain (the scene of
+   phase 3) at 512x512 x 4 spp with bench.py's options, through the tile
+   walk: launched, the image finite; its load seconds, walls, rays/s by
+   bench.py's convention and the peak device memory of the render.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -77,8 +91,9 @@ each, at 128 lanes a clock on each SM). Then the card's name and power
 limit, the kernel table, and as the last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it exits nonzero and prints no result.
 ``--exr PATH`` also keeps config4_big's image; ``--profile`` profiles one
-more render of config4_big, of the rocks scene and of config2/none (phase
-"profile"; for the brute-force scenes mt_best's device ms by mode), and
+more render of config4_big, of the rocks scene, of config2/none, of
+config1, config2/grid, config4/kdtree and config5_huge (phase "profile";
+for the brute-force scenes mt_best's device ms by mode), and
 profiles config2/none, config4_big without an accelerator and bench3
 with their visibility segments dispatched as the port does (split) and
 fused into one launch a bounce as it did before it followed tpuprt's
@@ -111,6 +126,10 @@ GOLDEN2 = os.path.join(ROOT, "scenes", "golden2.exr")
 CONFIG3 = os.path.join(ROOT, "scenes", "config3.pbrt")
 GOLDEN3 = os.path.join(ROOT, "scenes", "golden3.exr")
 BENCH3 = os.path.join(ROOT, "scenes", "bench3.pbrt")
+CONFIG1 = os.path.join(ROOT, "scenes", "config1.pbrt")
+GOLDEN1 = os.path.join(ROOT, "scenes", "golden1.exr")
+CONFIG4 = os.path.join(ROOT, "scenes", "config4.pbrt")
+GOLDEN4 = os.path.join(ROOT, "scenes", "golden4.exr")
 
 # bench.py's rays/s convention for config4_big: camera + shadow rays of the
 # reference pbrt-v1 run (bench.py CONFIG4_REF_RAYS).
@@ -129,6 +148,15 @@ CONFIG3_SPP, BAND3_REL, BAND3_MEAN = 64, 0.10, 0.03
 # bench.py's rays/s convention for bench3: camera + shadow rays of the
 # reference pbrt-v1 run (bench.py CONFIG3_REF_RAYS).
 BENCH3_REF_RAYS = 2.114e6 + 3.363e6
+# The same for config5_huge (bench.py CONFIG5_REF_RAYS).
+CONFIG5_REF_RAYS = 1.053e6 + 0.387e6
+# config1 and config4 against golden1.exr and golden4.exr: the limits
+# tests/test_golden.py holds tpuprt.render to.
+BAND1_REL, BAND1_MEAN = 0.025, 0.015
+BAND4_REL, BAND4_MEAN = 0.02, 0.01
+# The plain grid and kd-tree walks are timed on this many camera rays,
+# one pool's worth (bench.py's 2^17 lanes).
+WALK_RAYS = 1 << 17
 MT_CONFIG4_RAYS = 1 << 17  # config4_big camera rays held against mt_best
 T_RTOL = 1e-6             # kernel vs plain: t agreement (relative)
 # timed(): the spin before each timed call, about 8 ms at the H100's clock,
@@ -704,16 +732,19 @@ def config2_none_text():
     return text.replace('Accelerator "grid"', 'Accelerator "none"')
 
 
-def scale_scene(device):
-    """bench.py's 1M-triangle terrain (config4's lights and camera, plain
-    matte), built through the port's SceneBuilder."""
+def config5_huge():
+    """bench.py's config5_huge (build_config5_scene): the 1M-triangle
+    terrain with config4's lights and camera, plain matte, built through
+    the port's SceneBuilder, and bench.py's options for it. Returns
+    (scene on the host, RenderOptions, triangles)."""
     import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_scenes import terrain
     from tpuprt_torch.cameras import cameras as cam
     from tpuprt_torch.core import transform as tf
+    from tpuprt_torch.render import RenderOptions
+    from tpuprt_torch.samplers.samplers import SamplerConfig
     from tpuprt_torch.scene.build import SceneBuilder
-    from tpuprt_torch.scene.data import to_device
     v, f = terrain(SCALE_TERRAIN_N)
     b = SceneBuilder()
     m = b.matte(kd=(0.6, 0.55, 0.5))
@@ -725,7 +756,55 @@ def scale_scene(device):
     b.set_camera(cam.build_projective(
         0, c2w, np.asarray(tf.perspective(55.0, 1e-2, 100.0)),
         cam.default_screen_window(512, 512), 512, 512))
-    return to_device(b.build(), device), len(f)
+    opts = RenderOptions(
+        xres=512, yres=512,
+        sampler=SamplerConfig(kind="lowdiscrepancy", pixelsamples=4),
+        filter_kind="box", filter_xwidth=0.5, filter_ywidth=0.5,
+        integrator="directlighting", max_depth=5, chunk_size=1 << 17,
+        half_readback=True)
+    return b.build(), opts, len(f)
+
+
+def walk_timing(label, scene, rays, any_hit=False, reps=3):
+    """The plain grid or kd-tree walk (accel/grid.py, accel/kdtree.py) on
+    the card: its wall per call (host clock, synchronized; median of
+    `reps` after a warm-up), the passes it made (a DDA step or a kd
+    restart: one batched prim test each) and the (ray, slot) pairs it
+    tested (a second, counted call)."""
+    import torch
+    from tpuprt_torch.accel import grid as grid_mod
+    from tpuprt_torch.accel import intersect as isect
+    from tpuprt_torch.accel import kdtree as kd_mod
+    args = (scene, rays[0:3].T, rays[3:6].T, rays[6], rays[7])
+
+    def call():
+        out = isect.occluded(*args) if any_hit else \
+            isect.intersect_ids(*args)[2]
+        torch.cuda.synchronize()
+        return out
+    call()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        hit = call()
+        walls.append(time.perf_counter() - t0)
+    passes, pairs = [0], [0]
+    real = grid_mod.nearest_in_ranges
+
+    def spy(*a):
+        passes[0] += 1
+        pairs[0] += int(a[3].sum())
+        return real(*a)
+    with patched(grid_mod, "nearest_in_ranges", spy), \
+            patched(kd_mod, "nearest_in_ranges", spy):
+        call()
+    r = dict(phase="walk", set=label, accel=type(scene.accel).__name__,
+             mode="any" if any_hit else "nearest", rays=rays.shape[1],
+             hits=int(hit.sum()), ms=sorted(walls)[reps // 2] * 1e3,
+             passes=passes[0], pairs=pairs[0],
+             pairs_per_ray=pairs[0] / rays.shape[1])
+    emit(**r)
+    return r
 
 
 def rocks_scenes(text):
@@ -1047,7 +1126,7 @@ def ab_main(old_dir, reps=5, renders=2, new_first=False):
     scene, opts = load_scene(SCENE)
     opts = opts._replace(chunk_size=1 << 17, half_readback=True)
     scene_d = to_device(scene, device)
-    big, _ = scale_scene(device)
+    big = to_device(config5_huge()[0], device)
     shadow = capture_rays(scene, opts, device, bvh_cuda, "traverse_tiles",
                           4)[True]
     for label, bvh, rays, any_hit in (
@@ -1176,12 +1255,14 @@ def main(argv=None):
         res[name] += fn("config4_big/random", bvh, rnd_rays)
     del cam_rays, rnd_rays
 
-    # 3. Kernels vs plain versions above 22000 nodes (1M triangles).
+    # 3. Kernels vs plain versions above 22000 nodes (1M triangles):
+    # config5_huge's scene, rendered in phase 17.
     t0 = time.perf_counter()
-    big, ntris = scale_scene(device)
+    c5, c5_opts, ntris = config5_huge()
+    c5_load_s = time.perf_counter() - t0
+    big = to_device(c5, device)
     emit(phase="load", scene=f"terrain({SCALE_TERRAIN_N})",
-         seconds=time.perf_counter() - t0, triangles=ntris,
-         nn=big.accel.n_nodes)
+         seconds=c5_load_s, triangles=ntris, nn=big.accel.n_nodes)
     assert big.accel.n_nodes > 22000, big.accel.n_nodes
     rays = sort_packed(big.accel, torch.from_numpy(random_rays(1 << 16, 2))
                        .to(device))
@@ -1428,6 +1509,60 @@ def main(argv=None):
     if args.profile:
         dispatch_turns("config2/none", c2, c2_opts, device)
         dispatch_turns("bench3", b3, b3_opts, device, ("split", "fused"))
+    del b3, c2
+
+    # 14. Main path, Whitted: config1 as its file asks, bench.py's pool.
+    def golden_render(label, path, golden, band_limits, walks=()):
+        t0 = time.perf_counter()
+        sc, so = load_scene(path)
+        emit(phase="load", scene=label, seconds=time.perf_counter() - t0,
+             triangles=sc.triangles.count, quadrics=sc.quadrics.count,
+             accel=type(sc.accel).__name__, integrator=so.integrator,
+             sampler=so.sampler._asdict())
+        so = so._replace(chunk_size=1 << 17, half_readback=True)
+        sc_d = to_device(sc, device)
+        if walks:
+            cam = camera_rays(sc_d, so, device)
+            cam = cam[:, ::cam.shape[1] // WALK_RAYS].contiguous()
+            for any_hit in walks:
+                walk_timing(f"{label}/camera", sc_d, cam, any_hit)
+            del cam
+        rgb, launches[label], first_s, wall = render_path(label, sc, so,
+                                                          device, [])
+        rel, mean = band(rgb, read_exr(golden)[0])
+        spp = smp.samples_per_pixel(so.sampler)
+        emit(phase="render", scene=label, shape=list(rgb.shape), spp=spp,
+             launches=launches[label], finite=True, band_rel=rel,
+             band_rel_limit=band_limits[0], band_mean=mean,
+             band_mean_limit=band_limits[1], first_render_s=first_s,
+             wall_s=wall, samples_per_s=so.xres * so.yres * spp / wall)
+        assert rel < band_limits[0] and mean < band_limits[1], (rel, mean)
+        if args.profile:
+            profile_render(label, sc, so, device)
+
+    from tpuprt_torch.samplers import samplers as smp
+    golden_render("config1", CONFIG1, GOLDEN1, (BAND1_REL, BAND1_MEAN))
+    # 15. Main path, the uniform grid: config2 as its file asks.
+    golden_render("config2/grid", CONFIG2, GOLDEN2, (BAND2_REL, BAND2_MEAN),
+                  walks=(False,))
+    # 16. Main path, the kd-tree: config4 as its file asks.
+    golden_render("config4/kdtree", CONFIG4, GOLDEN4,
+                  (BAND4_REL, BAND4_MEAN), walks=(False, True))
+
+    # 17. Main path at 1M triangles: config5_huge with bench.py's options.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rgb, launches["config5_huge"], first_s, wall = render_path(
+        "config5_huge", c5, c5_opts, device, ["bvh_tiles"])
+    emit(phase="render", scene="config5_huge", shape=list(rgb.shape),
+         spp=c5_opts.sampler.pixelsamples, triangles=ntris,
+         launches=launches["config5_huge"], finite=True,
+         load_s=c5_load_s, first_render_s=first_s, wall_s=wall,
+         rays_per_s=CONFIG5_REF_RAYS / wall,
+         peak_device_bytes=torch.cuda.max_memory_allocated())
+    if args.profile:
+        profile_render("config5_huge", c5, c5_opts, device)
+    del c5
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -1463,6 +1598,9 @@ def main(argv=None):
                                        "plain_ms", "bound_ms",
                                        "fmad_floor_ms")}
                     for r in rs])
+        if name == "bvh_tiles":
+            entry["config5_huge_launches"] = \
+                launches["config5_huge"]["bvh_tiles"]
         if name == "mt_best":
             # bench3's path: its launches by mode and its camera set.
             b3_cam = next(r for r in rs if r["set"] == "bench3/camera")

@@ -32,6 +32,7 @@ from tpuprt_torch import render as torch_render
 from tpuprt_torch.accel import intersect as tisect
 from tpuprt_torch.ops import mt_cuda
 from tpuprt_torch.scene.bridge import from_numpy_tables
+from tpuprt_torch.scene.data import BvhAccel, GridAccel, KdTreeAccel
 from tpuprt_torch.scene.parser import load_scene_string
 
 torch.set_num_threads(1)
@@ -254,9 +255,9 @@ def grid_mesh(n):
     ('Accelerator "anything"', MESH, None),
     ('Accelerator "bvh"', MESH, "bvh"),
     ("", grid_mesh(46), "bvh"),                       # auto, > 4096 prims
-    ("", grid_mesh(6), "not ported"),                 # auto, 72 prims
-    ('Accelerator "grid"', MESH, "not ported"),
-    ('Accelerator "kdtree"', MESH, "not ported"),
+    ("", grid_mesh(6), "grid"),                       # auto, 72 prims
+    ('Accelerator "grid"', MESH, "grid"),
+    ('Accelerator "kdtree"', MESH, "kdtree"),
     ('Accelerator "bvh"', 'Shape "sphere"\n' + MESH, "quadrics inside"),
     ("", 'AreaLightSource "area"\n' + MESH, "area lights on shape"),
     ("", 'AreaLightSource "area"\nShape "cone"\n', "area lights on shape"),
@@ -266,9 +267,11 @@ def grid_mesh(n):
 ])
 def test_accelerator_policy(accel, body, result):
     text = BASE.format(accel=accel, body=body)
-    if result in (None, "bvh"):
+    built = {None: type(None), "bvh": BvhAccel, "grid": GridAccel,
+             "kdtree": KdTreeAccel}
+    if result in built:
         scene, _ = load_scene_string(text)
-        assert (scene.accel is None) == (result is None)
+        assert type(scene.accel) is built[result]
         return
     with pytest.raises(NotImplementedError, match=result):
         load_scene_string(text)

@@ -108,7 +108,10 @@ def test_port_imports_no_jax():
             "tpuprt_torch.ops.mt_cuda, tpuprt_torch.shapes.quadrics, "
             "tpuprt_torch.bsdf.bsdf, tpuprt_torch.materials.factory, "
             "tpuprt_torch.integrators.common, "
-            "tpuprt_torch.integrators.path_wavefront; "
+            "tpuprt_torch.integrators.path_wavefront, "
+            "tpuprt_torch.accel.grid, tpuprt_torch.accel.grid_build, "
+            "tpuprt_torch.accel.kdtree, tpuprt_torch.accel.kdtree_build, "
+            "tpuprt_torch.samplers.samplers, tpuprt_torch.lights.lights; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

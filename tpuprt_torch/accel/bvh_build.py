@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-from ..native import build_shared
+from ..native import GXX, build_shared
 from ..scene.data import BvhAccel
 
 LEAF_K = 8
@@ -28,14 +28,10 @@ MAX_TILE_DEPTH = 32
 
 BVH_BUILD8_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "csrc", "bvh_build8.cpp")
-# The reference's flags (tpuprt/native/__init__.py): no FMA contraction, so
-# the tree does not depend on the host's vector units.
-_GXX = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
-        "-shared", "-fPIC"]
 
 
 def _native_builder():
-    fn = build_shared(BVH_BUILD8_SRC, _GXX).tpuprt_bvh_build8
+    fn = build_shared(BVH_BUILD8_SRC, GXX).tpuprt_bvh_build8
     fptr = ctypes.POINTER(ctypes.c_float)
     iptr = ctypes.POINTER(ctypes.c_int)
     fn.restype = ctypes.c_int

@@ -1,6 +1,7 @@
 """Scene-level intersection, hit geometry and ray differentials (port of
-tpuprt/accel/intersect.py: the BVH and the brute-force aggregate over
-quadrics and triangles, plus ObjectInstance meshes).
+tpuprt/accel/intersect.py: the BVH, the uniform grid, the kd-tree and the
+brute-force aggregate over quadrics and triangles, plus ObjectInstance
+meshes).
 
 A primitive id is, as in the reference, a quadric id q in [0, NQ), a
 triangle id t as NQ + t, or NQ + NT + inst * n_tris + proto_tri for a hit
@@ -21,10 +22,13 @@ from ..core import transform as tf
 from ..core import vecmath as vm
 from ..ops import mt_cuda
 from ..scene.data import (QUADRIC_CONE, QUADRIC_CYLINDER, QUADRIC_DISK,
-                          QUADRIC_HYPERBOLOID, QUADRIC_PARABOLOID, SceneData)
+                          QUADRIC_HYPERBOLOID, QUADRIC_PARABOLOID, GridAccel,
+                          KdTreeAccel, SceneData)
 from ..shapes import quadrics, triangle
 from . import bvh as bvh_mod
+from . import grid as grid_mod
 from . import instances as inst_mod
+from . import kdtree as kd_mod
 
 _BIG = 1e30
 
@@ -68,12 +72,20 @@ def _brute_force(scene: SceneData, o, d, mint, maxt, any_hit=False):
 
 
 def _main_intersect(scene: SceneData, o, d, mint, maxt, any_hit=False):
-    if scene.accel is None:
+    """The main aggregate by its accelerator (tpuprt/accel/intersect.py:
+    135-193). The grid has no any-hit mode: an any-hit caller gets its
+    nearest walk, as tpuprt's occluded does."""
+    accel = scene.accel
+    if accel is None:
         # The quadrics resolve their nearest hit, the triangle kernel stops
         # at a first hit for an any-hit caller, who reads only the mask
         # (tpuprt/accel/intersect.py:187-188 reads tpuprt's nearest mask,
         # the same booleans).
         return _brute_force(scene, o, d, mint, maxt, any_hit=any_hit)
+    if isinstance(accel, GridAccel):
+        return grid_mod.intersect(scene, o, d, mint, maxt)
+    if isinstance(accel, KdTreeAccel):
+        return kd_mod.intersect(scene, o, d, mint, maxt, any_hit=any_hit)
     return bvh_mod.intersect(scene, o, d, mint, maxt, any_hit=any_hit)
 
 

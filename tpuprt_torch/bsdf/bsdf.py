@@ -414,7 +414,9 @@ def sample_f(b: BsdfBatch, wo_w, u1, u2, u3, mask=ALL):
     other sample adds the other matching lobes' pdfs and recomputes f over
     the matching lobes on the sampled side.
 
-    Returns dict(wi, f, pdf, flags, specular, valid).
+    Returns dict(wi, f, pdf, flags, specular, valid, eta): eta is the
+    sampled lobe's etat / etai on a specular transmission lobe, 1 on any
+    other (whitted.cpp:117 reads it for the ray differentials).
     """
     lo = b.lobes
     _check_kinds(lo)
@@ -448,5 +450,10 @@ def sample_f(b: BsdfBatch, wo_w, u1, u2, u3, mask=ALL):
     f_val = torch.where(is_spec[..., None], f_spec, f_sum)
 
     valid = (ncomp > 0) & (pdf_sel > 0.0)
+    eta_cols = torch.where(sel[..., None], lo.eta, 0).sum(dim=-2)
+    eta = torch.where(torch.where(sel, lo.kind, 0).sum(dim=-1) ==
+                      BX_SPECTRANS,
+                      eta_cols[..., 1] / torch.clamp(eta_cols[..., 0],
+                                                     min=1e-6), 1.0)
     return dict(wi=wi_w, f=f_val, pdf=torch.where(valid, pdf_total, 0.0),
-                flags=sampled_flags, specular=is_spec, valid=valid)
+                flags=sampled_flags, specular=is_spec, valid=valid, eta=eta)

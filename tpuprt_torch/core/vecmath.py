@@ -69,3 +69,15 @@ def coordinate_system(v1):
     v2b = torch.stack([zero, z * inv_b, -y * inv_b], dim=-1)
     v2 = torch.where(cond, v2a, v2b)
     return v1, v2, cross(v1, v2)
+
+
+def bbox_intersect_p(lo, hi, o, d, mint, maxt):
+    """Slab test of rays against one box (BBox::IntersectP,
+    core/geometry.cpp), branchless: (hit, t0, t1)."""
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-30,
+                            torch.where(d < 0, -1e-30, 1e-30), d)
+    tnear = (lo - o) * inv
+    tfar = (hi - o) * inv
+    t0 = torch.maximum(torch.minimum(tnear, tfar).amax(-1), mint)
+    t1 = torch.minimum(torch.maximum(tnear, tfar).amin(-1), maxt)
+    return t0 <= t1, t0, t1

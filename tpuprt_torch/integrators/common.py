@@ -1,13 +1,14 @@
 """Direct-lighting estimators shared by the wavefront integrators (port of
-tpuprt/integrators/common.py: make_bsdf_at, batched_visibility,
-estimate_direct_multi, estimate_direct and uniform_sample_one_light;
+tpuprt/integrators/common.py: make_bsdf_at, specular_ray_differentials,
+batched_visibility, estimate_direct_multi, estimate_direct and
+uniform_sample_one_light;
 core/transport.cpp:51-70, 123-194).
 
 The two-strategy MIS of EstimateDirect (light sampling with visibility +
 BSDF sampling, power heuristic) is kept exactly, as is the reference's
 dispatch of the rays: on a scene with an accelerator every light's shadow
-and BSDF-strategy rays go to the traversal kernel in ONE launch per
-bounce; without one, each segment is its own launch in its own mode.
+and BSDF-strategy rays go to the traversal in ONE call per bounce;
+without one, each segment is its own launch in its own mode.
 """
 from __future__ import annotations
 
@@ -36,6 +37,50 @@ def make_bsdf_at(scene: SceneData, dg):
     return B.BsdfBatch(nn=nn, sn=sn, tn=tn, ng=ng, lobes=lobes)
 
 
+def specular_ray_differentials(dg, ns, wo, wi, rx_d, ry_d, eta, is_trans):
+    """Ray differentials of a specular reflected or transmitted ray
+    (tpuprt/integrators/common.py:86-139; whitted.cpp:88-136): from the
+    incoming auxiliary directions rx_d, ry_d and dg's first-order
+    derivatives (dpdx, dpdy, dndu, dndv, dudx .. dvdy), the continuation's
+    (rx_o, rx_d, ry_o, ry_d). eta: sample_f's eta; is_trans picks the
+    refraction formula per lane. tpuprt's two deliberate corrections of
+    pbrt-v1's refraction derivative are kept: the Snell ratio etai/etat
+    (1/eta entering, eta leaving) and the sign of the mu term."""
+    p = dg["p"]
+    rx_o = p + dg["dpdx"]
+    ry_o = p + dg["dpdy"]
+    dndx = dg["dndu"] * dg["dudx"][..., None] + \
+        dg["dndv"] * dg["dvdx"][..., None]
+    dndy = dg["dndu"] * dg["dudy"][..., None] + \
+        dg["dndv"] * dg["dvdy"][..., None]
+    dwodx = -rx_d - wo
+    dwody = -ry_d - wo
+    dDNdx = vm.dot(dwodx, ns) + vm.dot(wo, dndx)
+    dDNdy = vm.dot(dwody, ns) + vm.dot(wo, dndy)
+    wodn = vm.dot(wo, ns)
+    refl_rx = wi - dwodx + 2.0 * (wodn[..., None] * dndx +
+                                  dDNdx[..., None] * ns)
+    refl_ry = wi - dwody + 2.0 * (wodn[..., None] * dndy +
+                                  dDNdy[..., None] * ns)
+    w = -wo
+    eta_r = torch.where(wodn > 0.0, 1.0 / torch.clamp(eta, min=1e-6), eta)
+    widn = vm.dot(wi, ns)
+    widn_safe = torch.where(torch.abs(widn) < 1e-6,
+                            torch.where(widn < 0, -1e-6, 1e-6), widn)
+    wdn = vm.dot(w, ns)
+    mu = eta_r * wdn - widn
+    dmu_fac = eta_r - (eta_r * eta_r * wdn) / widn_safe
+    dmudx = dmu_fac * dDNdx
+    dmudy = dmu_fac * dDNdy
+    trans_rx = wi - eta_r[..., None] * dwodx + \
+        (mu[..., None] * dndx + dmudx[..., None] * ns)
+    trans_ry = wi - eta_r[..., None] * dwody + \
+        (mu[..., None] * dndy + dmudy[..., None] * ns)
+    m = is_trans[..., None]
+    return (rx_o, torch.where(m, trans_rx, refl_rx),
+            ry_o, torch.where(m, trans_ry, refl_ry))
+
+
 def batched_visibility(scene: SceneData, segs, needs):
     """Resolve ray segments (tpuprt/integrators/common.py:148-215).
 
@@ -43,9 +88,10 @@ def batched_visibility(scene: SceneData, segs, needs):
     needs: list of "any" | "nearest" per segment.
     Returns per segment: (t, pid, hit) for "nearest", occluded booleans for
     "any". On a scene with an accelerator, several segments go to the
-    traversal kernel in ONE launch: a nearest launch if any segment needs
-    "nearest", else an any-hit launch; the front end sorts the fused batch
-    for coherence. Without an accelerator, or for one segment, each
+    traversal in ONE call: a nearest walk if any segment needs "nearest",
+    else an any-hit walk; the BVH's front end sorts the fused batch for
+    coherence, the grid and the kd-tree take it unsorted (common.py:
+    193-194). Without an accelerator, or for one segment, each
     segment is its own launch in its own mode (common.py:166-174): a
     "nearest" segment through intersect_ids, an "any" one through occluded
     (mt_best's any-hit mode on the brute force).

@@ -1,6 +1,6 @@
 """Wavefront rendering with path regeneration (port of
-tpuprt/integrators/path_wavefront.py, modes "path" and "directlighting"
-with strategy "all").
+tpuprt/integrators/path_wavefront.py, modes "path", "directlighting" with
+strategy "all", and "whitted").
 
 One fixed-size lane pool; the moment a lane's path ends, its radiance is
 splatted to the film and the lane restarts with the next (pixel, sample)
@@ -13,7 +13,9 @@ Mode "path" is path.cpp:58-145: one-light MIS next-event estimation, Le
 only on the first vertex and after a specular bounce, the full BSDF
 continuation, Russian roulette with probability 0.5 from bounce 3 on.
 Mode "directlighting" is directlighting.cpp: every light at every vertex
-and a specular-only continuation.
+and a specular-only continuation. Mode "whitted" is whitted.cpp:44-140:
+every light with one sample and no MIS, a specular-only continuation that
+carries the ray differentials across bounces.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from . import common
 
 _EPS = vm.RAY_EPSILON
 # Each mode's salt of the per-pixel hash (path_wavefront.py:220-221).
-SALTS = {"path": 0xBA5E, "directlighting": 0xD112}
+SALTS = {"path": 0xBA5E, "directlighting": 0xD112, "whitted": 0x817}
 # Russian roulette from this bounce on (path_wavefront.py:434, :478).
 RR_START = 3
 
@@ -91,12 +93,43 @@ def _path_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
                                            alive)
 
 
+def _whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce, alive):
+    """Whitted direct lighting (path_wavefront.py:146-178): every light,
+    one sample each, no MIS, streams rng.uniform(ph, s_idx, bounce, i,
+    1..3); all the lights' shadow rays resolved in one batched_visibility
+    call, every segment "any"."""
+    samples, segs = [], []
+    for i in range(scene.lights.count):
+        lid = torch.full(p.shape[:-1], i, dtype=torch.int32, device=p.device)
+        sm = lt.sample(scene, lid, p, ns, rng.uniform(ph, s_idx, bounce, i, 1),
+                       rng.uniform(ph, s_idx, bounce, i, 2),
+                       rng.uniform(ph, s_idx, bounce, i, 3))
+        f_val = B.f(bsdf, wo, sm["wi"])
+        need = alive & (sm["pdf"] > 0.0) & \
+            ~torch.all(sm["Li"] == 0.0, dim=-1) & \
+            ~torch.all(f_val == 0.0, dim=-1)
+        samples.append((sm, f_val, need))
+        # Provably-zero lanes get degenerate rays (mint 1 > maxt -1).
+        segs.append((p, sm["wi"], torch.where(need, _EPS, 1.0),
+                     torch.where(need, sm["vis_maxt"], -1.0)))
+    Ld = torch.zeros_like(p)
+    if not segs:
+        return Ld
+    vis = common.batched_visibility(scene, segs, ["any"] * len(segs))
+    for (sm, f_val, need), occ in zip(samples, vis):
+        contrib = f_val * sm["Li"] * (
+            vm.absdot(sm["wi"], ns) /
+            torch.clamp(sm["pdf"], min=1e-20))[..., None]
+        Ld = Ld + torch.where((need & ~occ)[..., None], contrib, 0.0)
+    return Ld
+
+
 def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
           xres, yres, xstart, xcount, ystart, spp, filter_kind,
           filter_xwidth, filter_ywidth, mode):
-    """One wavefront pass (path_wavefront.py:181-420) in `mode` ("path" or
-    "directlighting"): bounce every live lane once, splat + regenerate
-    finished lanes. Returns (state, cursor)."""
+    """One wavefront pass (path_wavefront.py:181-420) in `mode` ("path",
+    "directlighting" or "whitted"): bounce every live lane once, splat +
+    regenerate finished lanes. Returns (state, cursor)."""
     alive = st["alive"]
     px, py, s_idx, bounce = st["px"], st["py"], st["s_idx"], st["bounce"]
     ro, rd = st["o"], st["d"]
@@ -122,8 +155,12 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     alpha = torch.where(first & hit, 1.0, alpha)
 
     dg = isect.hit_geometry(scene, pid, ro, rd, t)
+    # Whitted needs the differentials at every bounce (they propagate
+    # through its specular continuation), the others at the first.
     dg = isect.compute_differentials(dg, st["rx_o"], st["rx_d"],
-                                     st["ry_o"], st["ry_d"], first & alive)
+                                     st["ry_o"], st["ry_d"],
+                                     alive if mode == "whitted"
+                                     else first & alive)
     if LIGHT_AREA in scene.lights.kinds_present:
         # Emitted radiance at a live hit (path_wavefront.py:286-289): in
         # path mode only on the first vertex or after a specular bounce.
@@ -134,9 +171,12 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     p, ns = dg["p"], bsdf.nn
     wo = -rd
     if scene.lights.count > 0:
-        ld = _path_ld if path else _direct_ld
-        Ld = ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
-                alive)
+        if mode == "whitted":
+            Ld = _whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce, alive)
+        else:
+            ld = _path_ld if path else _direct_ld
+            Ld = ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce,
+                    seed, alive)
         L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
 
     if path:
@@ -145,7 +185,7 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
         c3 = smp.integrator_1d(cfg, px, py, s_idx, bounce, 21, seed)
         bs = B.sample_f(bsdf, wo, c1, c2, c3, B.ALL)
     else:
-        # Specular-only continuation (directlighting.cpp).
+        # Specular-only continuation (directlighting.cpp, whitted.cpp).
         c1 = rng.uniform(ph, s_idx, bounce, 0x5A, 1)
         c2 = rng.uniform(ph, s_idx, bounce, 0x5A, 2)
         c3 = rng.uniform(ph, s_idx, bounce, 0x5A, 3)
@@ -157,6 +197,16 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
                        torch.clamp(bs["pdf"], min=1e-20))[..., None]
     throughput = torch.where(cont[..., None], throughput * scale, throughput)
     specular = torch.where(cont, bs["specular"], specular)
+    rx_o, rx_d, ry_o, ry_d = st["rx_o"], st["rx_d"], st["ry_o"], st["ry_d"]
+    if mode == "whitted":
+        # The continuation carries its ray differentials (whitted.cpp:
+        # 88-136).
+        nrxo, nrxd, nryo, nryd = common.specular_ray_differentials(
+            dg, ns, wo, bs["wi"], rx_d, ry_d, bs["eta"],
+            (bs["flags"] & B.TRANSMISSION) > 0)
+        m = cont[..., None]
+        rx_o, rx_d = torch.where(m, nrxo, rx_o), torch.where(m, nrxd, rx_d)
+        ry_o, ry_d = torch.where(m, nryo, ry_o), torch.where(m, nryd, ry_d)
     alive = cont
     if path:
         # Russian roulette (path_wavefront.py:352-359).
@@ -200,10 +250,8 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
         o=sel(fresh["o"], ro), d=sel(fresh["d"], rd),
         mint=sel(fresh["mint"], torch.full_like(st["mint"], _EPS)),
         maxt=sel(fresh["maxt"], torch.full_like(st["maxt"], 1e30)),
-        rx_o=sel(fresh["rx_o"], st["rx_o"]), rx_d=sel(fresh["rx_d"],
-                                                      st["rx_d"]),
-        ry_o=sel(fresh["ry_o"], st["ry_o"]), ry_d=sel(fresh["ry_d"],
-                                                      st["ry_d"]),
+        rx_o=sel(fresh["rx_o"], rx_o), rx_d=sel(fresh["rx_d"], rx_d),
+        ry_o=sel(fresh["ry_o"], ry_o), ry_d=sel(fresh["ry_d"], ry_d),
         throughput=sel(torch.ones_like(throughput), throughput),
         L=sel(torch.zeros_like(L), L),
         alpha=torch.where(regen, 0.0, alpha),
@@ -235,8 +283,8 @@ def render(scene: SceneData, opts, device):
     `device`. Returns (rgb, alpha) as numpy f32 arrays."""
     if opts.integrator not in SALTS:
         raise NotImplementedError(
-            f'integrator "{opts.integrator}" is not ported (path, and '
-            'directlighting with strategy "all")')
+            f'integrator "{opts.integrator}" is not ported (path, whitted, '
+            'and directlighting with strategy "all")')
     lt.check(scene.lights)    # once per render: it reads a table
     film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)

@@ -1,9 +1,11 @@
-"""Batched light sampling (port of tpuprt/lights/lights.py for distant
-lights, infinite lights without an environment map, and area lights on a
-sphere, disk or cylinder).
+"""Batched light sampling (port of tpuprt/lights/lights.py for point and
+distant lights, infinite lights without an environment map, and area
+lights on a sphere, disk or cylinder).
 
 Per-lane light ids index the LightTable; each kind's sample is computed
 masked and selected, as in the reference:
+  * point (lights/point.cpp:38-50): I / d^2 toward the light's position,
+    a delta light,
   * distant (lights/distant.cpp:61-75),
   * infinite: cosine-weighted about the normal with a hemisphere flip and
     pdf |cos|/2pi (lights/infinite.cpp:96-120),
@@ -14,15 +16,17 @@ masked and selected, as in the reference:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import mc, transform as tf, vecmath as vm
 from ..scene.data import (AREA_GEOM_QUADRIC, LIGHT_AREA, LIGHT_DISTANT,
-                          LIGHT_INFINITE, QUADRIC_DISK, QUADRIC_SPHERE,
-                          SceneData)
+                          LIGHT_INFINITE, LIGHT_POINT, QUADRIC_DISK,
+                          QUADRIC_SPHERE, SceneData)
 
 _BIG = 1e30
-PORTED_KINDS = (LIGHT_DISTANT, LIGHT_AREA, LIGHT_INFINITE)
+PORTED_KINDS = (LIGHT_POINT, LIGHT_DISTANT, LIGHT_AREA, LIGHT_INFINITE)
 
 
 def check(lights):
@@ -64,7 +68,7 @@ def le_escaped(scene: SceneData, d_world):
 def is_delta(kind):
     """IsDeltaLight (core/light.h:60-65) among the ported kinds; `kind` is
     an int or an int tensor."""
-    return kind == LIGHT_DISTANT
+    return (kind == LIGHT_POINT) | (kind == LIGHT_DISTANT)
 
 
 def _sample_quadric(scene: SceneData, light_id, p, u1, u2):
@@ -143,6 +147,15 @@ def sample(scene: SceneData, light_id, p, n, u1, u2, u3):
 
     # Distant: world direction stored in params[0:3].
     wi_dist = lights.params[light_id][..., 0:3]
+    if LIGHT_POINT in lights.kinds_present:
+        # Point: I / d^2 toward the light (tpuprt/lights/lights.py:
+        # 221-224).
+        to_l = light_pos - p
+        d2 = torch.clamp(vm.length_sq(to_l), min=1e-12)
+        wi_dist = torch.where((kind == LIGHT_POINT)[..., None],
+                              to_l * torch.rsqrt(d2)[..., None], wi_dist)
+        I = torch.where((kind == LIGHT_POINT)[..., None], I / d2[..., None],
+                        I)
 
     # Infinite: cosine about n, hemisphere flip by u3.
     x, y = mc.concentric_sample_disk(u1, u2)
@@ -159,8 +172,9 @@ def sample(scene: SceneData, light_id, p, n, u1, u2, u3):
     Li = torch.where(delta[..., None], I, Li_inf)
     pdf = torch.where(delta, 1.0, pdf_inf)
     # The reference treats every delta light, distant included, as a
-    # segment to the light's position (lights.py:398-402): a distant
-    # light's shadow ray ends at |l2w origin - p|. Kept for parity.
+    # segment to the light's position (lights.py:398-402): a point light's
+    # shadow ray ends short of it, and a distant light's at |l2w origin -
+    # p|. Kept for parity.
     seg_target = light_pos
     seg = delta
 
@@ -227,3 +241,17 @@ def area_emission(scene: SceneData, area_id, nn, w):
     L = scene.lights.spectrum[torch.clamp(area_id, min=0).long()]
     emits = (vm.dot(nn, w) > 0.0) & (area_id >= 0)
     return torch.where(emits[..., None], L, 0.0)
+
+
+def power(scene: SceneData):
+    """Light::Power of each light f32[L,3] (tpuprt/lights/lights.py:
+    529-550): a point light's 4 pi I, an area light's L pi area, a distant
+    or infinite light's L pi r^2 over the world's bounding sphere."""
+    lights = scene.lights
+    radius = 0.5 * vm.length(scene.world_bound_hi - scene.world_bound_lo)
+    k = lights.kind[..., None]
+    spec = lights.spectrum
+    out = spec * (math.pi * radius * radius)
+    out = torch.where(k == LIGHT_POINT, spec * (4.0 * math.pi), out)
+    return torch.where(k == LIGHT_AREA, spec * (
+        lights.area_total_area[..., None] * math.pi), out)

@@ -18,6 +18,12 @@ import subprocess
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 
+# The host builders' flags, the reference's (tpuprt/native/__init__.py:
+# 60-64): no FMA contraction, so a tree does not depend on the host's
+# vector units.
+GXX = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
+       "-shared", "-fPIC"]
+
 _loaded: dict = {}
 
 

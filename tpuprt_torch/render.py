@@ -10,7 +10,7 @@ import torch
 from .integrators import path_wavefront
 from .ops import bvh_cuda, mt_cuda
 from .samplers import samplers as smp
-from .scene.data import SceneData, to_device
+from .scene.data import BvhAccel, SceneData, to_device
 
 
 class RenderOptions(NamedTuple):
@@ -39,11 +39,11 @@ def render(scene: SceneData, opts: RenderOptions, device="cuda"):
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render(): no CUDA device; pass device=\"cpu\" "
                            "to render with the plain versions")
-    if scene.accel is not None:
+    if isinstance(scene.accel, BvhAccel):
         # Copy to the card only the BVH format the front end walks.
         scene = dataclasses.replace(scene,
                                     accel=bvh_cuda.walked_only(scene.accel))
-    elif scene.triangles.count:
+    elif scene.accel is None and scene.triangles.count:
         # Brute force: the dense kernel's triangles, packed once.
         scene = dataclasses.replace(
             scene, tris_packed=mt_cuda.pack_table(scene.triangles))

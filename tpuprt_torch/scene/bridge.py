@@ -4,9 +4,9 @@ nested dicts of numpy arrays, becomes a port SceneData.
 `tables` mirrors tpuprt's dataclasses: a dataclass becomes a dict of its
 fields (arrays as numpy, static fields as they are), a NamedTuple (texture
 node metadata) becomes a dict of its fields. Fields the port's tables do
-not have must be empty (no volumes, images or environment maps), and the
-accelerator must be a BVH or none (brute force); anything else raises
-NotImplementedError. The BVH's rows are padded to 128 columns, as the port
+not have must be empty (no volumes, images or environment maps); the
+accelerator is a BVH, a uniform grid, a kd-tree or none (brute force).
+Anything else raises NotImplementedError. The BVH's rows are padded to 128 columns, as the port
 stores them, and get the port's child-id table and depth
 (accel/bvh_build.child_table); an instance table gets the port's top-level
 BVH over its entries (accel/instances.build_top). tpuprt carries neither.
@@ -66,14 +66,24 @@ def _build(cls, d: dict, device, where: str):
     return cls(**kw)
 
 
+# An accelerator's class by a field only it has.
+_ACCELS = (("nodes", D.BvhAccel), ("cell_start", D.GridAccel),
+           ("node_flags", D.KdTreeAccel))
+
+
 def from_numpy_tables(tables: dict, device) -> D.SceneData:
-    """Port SceneData from the numpy tables of a tpuprt SceneData (a BVH
-    scene, or one without an accelerator: accel None)."""
+    """Port SceneData from the numpy tables of a tpuprt SceneData (with a
+    BVH, a grid, a kd-tree, or no accelerator: accel None)."""
+    nested = dict(_NESTED)
     accel = tables.get("accel")
-    if accel is not None and "nodes" not in accel:
-        raise NotImplementedError("only the BVH and brute force are ported")
-    top = {k: v for k, v in tables.items() if k not in _NESTED}
+    if accel is not None:
+        nested["accel"] = next(
+            (cls for key, cls in _ACCELS if key in accel), None)
+        if nested["accel"] is None:
+            raise NotImplementedError(f"accelerator {sorted(accel)} is not "
+                                      "ported")
+    top = {k: v for k, v in tables.items() if k not in nested}
     scene = _build(D.SceneData, top, device, "SceneData")
     return dataclasses.replace(scene, **{
         k: None if tables.get(k) is None else
-        _build(cls, tables[k], device, k) for k, cls in _NESTED.items()})
+        _build(cls, tables[k], device, k) for k, cls in nested.items()})

@@ -1,8 +1,9 @@
 """Host-side scene compilation: builder calls -> SceneData (port of
 tpuprt/scene/build.py for quadrics, triangle meshes and their non-emissive
 ObjectInstance prototypes, matte and plastic materials, constant and
-checkerboard textures, distant and infinite lights, area lights on a
-sphere, disk or cylinder, and the accelerator policy: the BVH, or none).
+checkerboard textures, point, distant and infinite lights, area lights
+on a sphere, disk or cylinder, and the accelerator policy: the BVH, the
+uniform grid, the kd-tree, or none).
 
 All assembly is host numpy with the reference's exact operations, so the
 finished tables equal the JAX package's bit for bit; `build()` wraps them
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 
 from ..accel.bvh_build import build_bvh
+from ..accel.grid_build import build_grid
 from ..accel.instances import build_instances
+from ..accel.kdtree_build import build_kdtree
 from ..core import transform as tf
 from ..materials.factory import MATERIAL_KINDS, build_templates
 from ..textures.graph import TexGraph, TexNodeMeta, check_node
@@ -75,6 +78,9 @@ class SceneBuilder:
         self.instances: List[Tuple[int, np.ndarray]] = []
         self.camera: Optional[D.CameraData] = None
         self.accel_kind: str = "auto"
+        # kd-tree SAH knobs from the Accelerator statement (isect_cost,
+        # trav_cost, empty_bonus, max_prims, max_depth).
+        self.accel_params: Dict[str, float] = {}
         self._const_cache: Dict[Tuple[float, float, float], int] = {}
 
     # ---- textures -------------------------------------------------------
@@ -258,6 +264,12 @@ class SceneBuilder:
         return len(self.instances) - 1
 
     # ---- lights ---------------------------------------------------------
+    def add_point_light(self, l2w, intensity=(1.0,) * 3):
+        """A point light at l2w's origin (lights/point.cpp)."""
+        self.lights.append(_Light(D.LIGHT_POINT, np.asarray(l2w, np.float32),
+                                  np.asarray(intensity, np.float32)))
+        return len(self.lights) - 1
+
     def add_distant_light(self, l2w, L=(1.0,) * 3, frm=(0, 0, 0),
                           to=(0, 0, 1)):
         l2w = np.asarray(l2w, np.float32)
@@ -446,24 +458,26 @@ class SceneBuilder:
             wlo = np.minimum(wlo, inst_tab.bounds_lo.numpy())
             whi = np.maximum(whi, inst_tab.bounds_hi.numpy())
 
-        # Accelerator (tpuprt/scene/build.py:755-779): "bvh", or "auto"
-        # above 4096 prims, builds the BVH; "auto" at 64 prims or fewer,
-        # "none" and any other name leave none (brute force). The grid and
-        # the kd-tree are not ported.
+        # Accelerator (tpuprt/scene/build.py:755-779): "kdtree" builds the
+        # kd-tree with the statement's SAH knobs; "bvh", or "auto" above
+        # 4096 prims, the BVH; "grid", or "auto" between 65 and 4096 prims,
+        # the grid; "auto" at 64 prims or fewer, "none" and any other name
+        # leave none (brute force).
         nprims = len(qs) + nt_total
         kind = self.accel_kind
         accel = None
-        if kind in ("grid", "kdtree") or (kind == "auto" and
-                                          64 < nprims <= 4096):
-            raise NotImplementedError(
-                f'accelerator "{kind}" for {nprims} prims is not ported '
-                '(the BVH: "bvh" or more than 4096 prims; none: "none" or '
-                "at most 64 prims)")
-        if kind == "bvh" or (kind == "auto" and nprims > 4096):
+        if kind == "kdtree":
+            kw = {k: v for k, v in self.accel_params.items()
+                  if k in ("isect_cost", "trav_cost", "empty_bonus",
+                           "max_prims", "max_depth")}
+            accel = build_kdtree(quad, tri, **kw)
+        elif kind == "bvh" or (kind == "auto" and nprims > 4096):
             if qs:
                 raise NotImplementedError(
                     "quadrics inside a BVH are not ported")
             accel = build_bvh(tri)
+        elif kind == "grid" or (kind == "auto" and nprims > 64):
+            accel = build_grid(quad, tri)
         return D.SceneData(
             triangles=tri, materials=materials, textures=textures,
             lights=lt_tab, camera=self.camera, accel=accel,

@@ -22,6 +22,7 @@ QUADRIC_CONE = 3
 QUADRIC_PARABOLOID = 4
 QUADRIC_HYPERBOLOID = 5
 
+LIGHT_POINT = 0
 LIGHT_DISTANT = 2
 LIGHT_AREA = 3
 LIGHT_INFINITE = 4
@@ -140,6 +141,37 @@ class CameraData:
 
 
 @dataclass
+class GridAccel:
+    """Uniform-grid accelerator (accel/grid_build.py, the reference's
+    resolution heuristic, grid.cpp:146-151): per-voxel prim lists in CSR
+    form. Prim ids: quadric q -> q, triangle t -> NQ + t."""
+    nvoxels: Tuple[int, int, int] = (1, 1, 1)
+    bounds_lo: torch.Tensor = None   # f32[3]
+    bounds_hi: torch.Tensor = None   # f32[3]
+    width: torch.Tensor = None       # f32[3] voxel width
+    inv_width: torch.Tensor = None   # f32[3]
+    cell_start: torch.Tensor = None  # i32[nx*ny*nz+1] offsets into prim_ids
+    prim_ids: torch.Tensor = None    # i32[P] the voxels' prim lists
+    max_per_voxel: int = 0
+
+
+@dataclass
+class KdTreeAccel:
+    """SAH kd-tree as flat node columns (accel/kdtree_build.py, the native
+    builder csrc/kdtree_build.cpp), walked by kd-restart
+    (accel/kdtree.py). Prim ids as in GridAccel."""
+    bounds_lo: torch.Tensor = None    # f32[3]
+    bounds_hi: torch.Tensor = None    # f32[3]
+    node_flags: torch.Tensor = None   # i32[NN]: 0/1/2 split axis, 3 leaf
+    node_split: torch.Tensor = None   # f32[NN]
+    node_above: torch.Tensor = None   # i32[NN]: above child | leaf offset
+    node_nprims: torch.Tensor = None  # i32[NN]: leaf prim count
+    prim_ids: torch.Tensor = None     # i32[P]
+    max_depth: int = 1                # deepest node + 1 (descent steps)
+    max_leaf_prims: int = 1           # widest leaf
+
+
+@dataclass
 class BvhAccel:
     """The 8-wide skip-link BVH (accel/bvh_build.py) in two formats.
 
@@ -220,7 +252,9 @@ class SceneData:
     textures: Any = None             # textures.graph.TexGraph
     lights: LightTable = None
     camera: CameraData = None
-    accel: BvhAccel = None           # None: brute force (accel/intersect.py)
+    # BvhAccel, GridAccel or KdTreeAccel; None: brute force
+    # (accel/intersect.py).
+    accel: Any = None
     instances: InstanceTable = None  # ray-transform instancing, or None
     quadrics: QuadricTable = None
     # The brute-force kernel's packed triangles f32[9,T] (ops/mt_cuda.

@@ -2,10 +2,12 @@
 tpuprt/scene/parser.py for the statements the port renders).
 
 Statements: Film, LookAt, Camera "perspective", Sampler, PixelFilter,
-SurfaceIntegrator, Accelerator, WorldBegin/End, AttributeBegin/End,
+SurfaceIntegrator "directlighting", "path" and "whitted", Accelerator (with
+the kd-tree's SAH knobs), WorldBegin/End, AttributeBegin/End,
 TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
 ReverseOrientation, Texture "checkerboard" and "constant", Material
-"matte" and "plastic", LightSource "infinite" (no map) and "distant",
+"matte", "plastic", "glass" and "mirror", LightSource "point",
+"infinite" (no map) and "distant",
 AreaLightSource "area" on a sphere, disk or cylinder, Shape "trianglemesh"
 and the six quadrics (sphere, cylinder, disk, cone, paraboloid,
 hyperboloid), and ObjectBegin/ObjectEnd/ObjectInstance of non-emissive
@@ -250,7 +252,18 @@ class PbrtParser:
             self.integrator_params = ts.params()
         elif name == "Accelerator":
             self.builder.accel_kind = ts.next()[1]
-            ts.params()
+            params = ts.params()
+            # kd-tree SAH knobs (accelerators/kdtree.cpp:489-498).
+            for src, dst in (("intersectcost", "isect_cost"),
+                             ("traversalcost", "trav_cost"),
+                             ("emptybonus", "empty_bonus"),
+                             ("maxprims", "max_prims"),
+                             ("maxdepth", "max_depth")):
+                v = params.find_one(src, None)
+                if v is not None:
+                    self.builder.accel_params[dst] = (
+                        int(v) if dst in ("max_prims", "max_depth")
+                        else float(v))
         elif name == "Material":
             self.material = (ts.next()[1], ts.params())
             self.material_id = None
@@ -379,7 +392,12 @@ class PbrtParser:
             fparams=fp)
 
     def _make_light(self, kind: str, params: ParamSet):
-        if kind == "distant":
+        if kind == "point":
+            self.builder.add_point_light(
+                self.ctm @ np.asarray(tfm.translate(
+                    params.find_point("from", (0, 0, 0))), np.float32),
+                params.find_spectrum("I", (1.0,) * 3))
+        elif kind == "distant":
             self.builder.add_distant_light(
                 self.ctm, params.find_spectrum("L", (1.0,) * 3),
                 params.find_point("from", (0, 0, 0)),
@@ -390,8 +408,8 @@ class PbrtParser:
                 params.find_one("nsamples", 1))
         else:
             raise NotImplementedError(
-                f'light "{kind}" is not ported (distant, and infinite '
-                "without a map)")
+                f'light "{kind}" is not ported (point, distant, and '
+                "infinite without a map)")
 
     def _make_shape(self, kind: str, params: ParamSet):
         """Shape (tpuprt/scene/parser.py:696-758): the material is made
@@ -474,17 +492,27 @@ class PbrtParser:
             screen, xres, yres, hither, yon,
             p.find_one("shutteropen", 0.0), p.find_one("shutterclose", 1.0),
             p.find_one("lensradius", 0.0), p.find_one("focaldistance", 1e30)))
-        if self.sampler_name != "lowdiscrepancy":
-            raise NotImplementedError(
-                f'sampler "{self.sampler_name}" is not ported')
-        scfg = SamplerConfig(
-            kind="lowdiscrepancy",
-            pixelsamples=self.sampler_params.find_one("pixelsamples", 4))
+        # tpuprt's mapping (tpuprt/scene/parser.py:834-847): "stratified"
+        # and "random" are themselves; "lowdiscrepancy", pbrt-v1's default
+        # "bestcandidate" and any other name take the (0,2)-sequences.
+        sp = self.sampler_params
+        if self.sampler_name == "stratified":
+            scfg = SamplerConfig(kind="stratified",
+                                 xsamples=sp.find_one("xsamples", 2),
+                                 ysamples=sp.find_one("ysamples", 2),
+                                 jitter=sp.find_one("jitter", True))
+        elif self.sampler_name == "random":
+            scfg = SamplerConfig(kind="random",
+                                 pixelsamples=sp.find_one("pixelsamples", 4))
+        else:
+            scfg = SamplerConfig(kind="lowdiscrepancy",
+                                 pixelsamples=sp.find_one("pixelsamples", 4))
         if self.filter_name not in DEFAULT_WIDTHS:
             raise NotImplementedError(
                 f'pixel filter "{self.filter_name}" is not ported')
         fw = DEFAULT_WIDTHS[self.filter_name]
-        if self.integrator_name not in ("directlighting", "path"):
+        if self.integrator_name not in ("directlighting", "path",
+                                        "whitted"):
             raise NotImplementedError(
                 f'integrator "{self.integrator_name}" is not ported')
         opts = RenderOptions(

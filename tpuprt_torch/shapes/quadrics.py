@@ -140,6 +140,31 @@ def intersect(quad: QuadricTable, o, d, mint, maxt):
     return t, in0 | in1
 
 
+def intersect_gathered(quad: QuadricTable, qid, o, d, mint, maxt):
+    """Each lane against its own quadric qid i[N] (an accelerator walk's
+    candidate): (t f32[N], 1e30 where none, valid bool[N])
+    (tpuprt/shapes/quadrics.py:157-185)."""
+    kind = quad.kind[qid]
+    p = quad.params[qid]
+    w2o_c = tf.row_components(quad.w2o, qid)
+    oo = tf.rows_apply_point(w2o_c, o)
+    od = tf.rows_apply_vector(w2o_c, d)
+    kp = quad.kinds_present or ALL_QUADRIC_KINDS
+    a, b, c = _coeffs(kind, p, oo, od, kp)
+    linear = kind == QUADRIC_DISK
+    okq, t0, t1 = vm.quadratic(a, b, c)
+    t_lin = -c / torch.where(torch.abs(b) < 1e-12, 1e-12, b)
+    t0 = torch.where(linear, t_lin, t0)
+    t1 = torch.where(linear, _BIG, t1)
+    okq = torch.where(linear, torch.abs(b) >= 1e-7, okq)
+    in0 = okq & (t0 > mint) & (t0 < maxt) & \
+        _clip_ok(kind, p, oo, od, t0, kp)
+    in1 = okq & (t1 > mint) & (t1 < maxt) & \
+        _clip_ok(kind, p, oo, od, t1, kp)
+    t = torch.where(in0, t0, torch.where(in1, t1, _BIG))
+    return t, in0 | in1
+
+
 def differential_geometry(quad: QuadricTable, qid, o, d, t):
     """DifferentialGeometry of each ray's quadric qid i[N] (a valid index)
     at t: dict(p, nn (geometric, flip applied), u, v, dpdu, dpdv, dndu,
