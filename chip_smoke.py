@@ -78,6 +78,29 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    phase 3) at 512x512 x 4 spp with bench.py's options, through the tile
    walk: launched, the image finite; its load seconds, walls, rays/s by
    bench.py's convention and the peak device memory of the render.
+18. parity -- mt_best on bench6 (scenes/bench6.pbrt: photonmap, 10
+   triangles, a disk light, a mirror sphere): the first shooting batch's
+   65,536 photon rays at depth 0 and at depth 2 (nearest), and from a
+   render with the maps built its biggest final-gather block (nearest)
+   and NEE shadow batch (any hit), bit for bit against the plain version.
+19. photons -- bench6's photon maps built on the card: batches, paths
+   shot, per map the photons kept and stored, n_paths, the batch that
+   filled it, buckets and bucket cap; seconds of shooting, host
+   collection and the grids' build.
+20. render -- config6 as its file asks (64x64 x 4 spp, photonmap, final
+   gather of 8): mt_best launched in both modes, the image inside
+   test_golden's band around scenes/golden6.exr.
+21. render -- bench6 (final gather of 16) and bench6ng (none) at their
+   full size (256x256 x 4 spp) as bench.py's bench_config6 times them:
+   load -> photon shooting and map build -> render in one wall, the first
+   run the main path's, then the best of 2; the image finite, samples/s,
+   the wall against pbrt-v1's 80.0 s, mt_best's launches by mode, the
+   peak device memory, and as information the band against
+   scenes/bench6.exr and bench6ng.exr.
+22. walk, render -- config2 with Accelerator "bvh" (a BVH holding its
+   disk: rows only, walked by the plain skip-link walk): the walk timed on
+   2^17 camera rays, nearest and any-hit, then the render inside golden2's
+   band.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -98,7 +121,11 @@ profiles config2/none, config4_big without an accelerator and bench3
 with their visibility segments dispatched as the port does (split) and
 fused into one launch a bounce as it did before it followed tpuprt's
 dispatch (phase "dispatch": config2/none in the turns split, fused,
-fused, split, the others split, fused).
+fused, split, the others split, fused), and profiles bench6 (its photon
+shooting included) with the device time of the photon lookups (lphoton),
+of photon_radiance and of build_maps (ranges_ms), and times the lookup of
+a final-gather block's hit points with whole-row gathers and with the
+shipped column takes (phase "lookup": rows, cols, cols, rows).
 
 ``--old DIR`` runs no smoke phase: it times the earlier ``bvh_tiles.cu``
 and ``bvh_rows.cu`` of commit 2a258fc (the skip-link walks), copied into
@@ -130,6 +157,10 @@ CONFIG1 = os.path.join(ROOT, "scenes", "config1.pbrt")
 GOLDEN1 = os.path.join(ROOT, "scenes", "golden1.exr")
 CONFIG4 = os.path.join(ROOT, "scenes", "config4.pbrt")
 GOLDEN4 = os.path.join(ROOT, "scenes", "golden4.exr")
+CONFIG6 = os.path.join(ROOT, "scenes", "config6.pbrt")
+GOLDEN6 = os.path.join(ROOT, "scenes", "golden6.exr")
+BENCH6 = os.path.join(ROOT, "scenes", "bench6.pbrt")
+BENCH6NG = os.path.join(ROOT, "scenes", "bench6ng.pbrt")
 
 # bench.py's rays/s convention for config4_big: camera + shadow rays of the
 # reference pbrt-v1 run (bench.py CONFIG4_REF_RAYS).
@@ -154,6 +185,11 @@ CONFIG5_REF_RAYS = 1.053e6 + 0.387e6
 # tests/test_golden.py holds tpuprt.render to.
 BAND1_REL, BAND1_MEAN = 0.025, 0.015
 BAND4_REL, BAND4_MEAN = 0.02, 0.01
+# config6 against golden6.exr: test_golden6_photonmap's limits.
+BAND6_REL, BAND6_MEAN = 0.10, 0.05
+# pbrt-v1's wall for bench6 on the CPU of the JAX package's image, single
+# thread, shooting included (bench.py PBRT_BENCH6_WALL).
+PBRT_BENCH6_WALL = 80.0
 # The plain grid and kd-tree walks are timed on this many camera rays,
 # one pool's worth (bench.py's 2^17 lanes).
 WALK_RAYS = 1 << 17
@@ -689,14 +725,17 @@ def patched(module, name, fn):
         setattr(module, name, real)
 
 
-def capture_rays(scene, opts, device, module, name, at, period=None):
+def capture_rays(scene, opts, device, module, name, at, period=None,
+                 maps=None):
     """The packed rays of one render's calls of the kernel wrapper
     module.name (rays its argument number `at`), as {any_hit: rays of the
     call with the most rays that have a non-empty window} (the first passes
     cover the sky, where no shadow ray is traced). With `period` p, when
     the render calls the wrapper p times a pass: {(k, any_hit): rays of the
     k-th call of one pass}, the pass whose any-hit calls have the most such
-    rays. Not a main-path run: the counts are reset before that."""
+    rays. `maps`: a photonmap render's PhotonMaps (none: the render shoots
+    its own, and those launches count in the period). Not a main-path run:
+    the counts are reset before that."""
     from tpuprt_torch import render as R
     got, cur, n = {}, {}, [0, -1]
 
@@ -720,7 +759,7 @@ def capture_rays(scene, opts, device, module, name, at, period=None):
             got[any_hit] = (live, rays.clone())
         return real(*a, **kw)
     with patched(module, name, spy) as real:
-        R.render(scene, opts, device=device)
+        R.render(scene, opts, device=device, maps=maps)
     return {k: v[1] for k, v in got.items()}
 
 
@@ -766,12 +805,14 @@ def config5_huge():
 
 
 def walk_timing(label, scene, rays, any_hit=False, reps=3):
-    """The plain grid or kd-tree walk (accel/grid.py, accel/kdtree.py) on
-    the card: its wall per call (host clock, synchronized; median of
-    `reps` after a warm-up), the passes it made (a DDA step or a kd
-    restart: one batched prim test each) and the (ray, slot) pairs it
-    tested (a second, counted call)."""
+    """The plain grid, kd-tree or quadric-BVH walk (accel/grid.py,
+    accel/kdtree.py, accel/bvh.walk_skip_links) on the card: its wall per
+    call (host clock, synchronized; median of `reps` after a warm-up), the
+    passes it made (a DDA step, a kd restart or a skip-link step: one
+    batched prim test each) and the (ray, slot) pairs it tested (a second,
+    counted call)."""
     import torch
+    from tpuprt_torch.accel import bvh as bvh_mod
     from tpuprt_torch.accel import grid as grid_mod
     from tpuprt_torch.accel import intersect as isect
     from tpuprt_torch.accel import kdtree as kd_mod
@@ -796,7 +837,8 @@ def walk_timing(label, scene, rays, any_hit=False, reps=3):
         pairs[0] += int(a[3].sum())
         return real(*a)
     with patched(grid_mod, "nearest_in_ranges", spy), \
-            patched(kd_mod, "nearest_in_ranges", spy):
+            patched(kd_mod, "nearest_in_ranges", spy), \
+            patched(bvh_mod, "nearest_in_ranges", spy):
         call()
     r = dict(phase="walk", set=label, accel=type(scene.accel).__name__,
              mode="any" if any_hit else "nearest", rays=rays.shape[1],
@@ -876,15 +918,18 @@ def render_path(label, scene, opts, device, need, exr=None):
     return rgb, launches, first_s, wall
 
 
-def profile_render(label, scene, opts, device, **extra):
+def profile_render(label, scene, opts, device, ranges=(), **extra):
     """One more render under torch.profiler: device time by kernel name
     (top 12), each traversal kernel's time, and the device's idle share of
     the render's wall time (one stream, so kernels do not overlap); for
     mt_best, its launches and device ms by mode (its kernels in launch
-    order, matched to the wrapper's calls). Emits and returns that line,
-    with the fields `extra`."""
+    order, matched to the wrapper's calls). `ranges`: (name, module,
+    function) triples; each function runs inside a record_function range
+    of that name, and the line gets the device ms of the torch ops each
+    range launched (ranges_ms; None where the trace attributes none).
+    Emits and returns that line, with the fields `extra`."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from tpuprt_torch import render as R
     from tpuprt_torch.ops import mt_cuda
     modes = []
@@ -892,16 +937,32 @@ def profile_render(label, scene, opts, device, **extra):
     def spy(rays, tris, any_hit=False):
         modes.append("any" if any_hit else "nearest")
         return real(rays, tris, any_hit=any_hit)
+
+    def in_range(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
     torch.cuda.synchronize()
-    with patched(mt_cuda, "mt_best", spy) as real, \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        for name, module, attr in ranges:
+            stack.enter_context(patched(module, attr, in_range(
+                name, getattr(module, attr))))
+        real = stack.enter_context(patched(mt_cuda, "mt_best", spy))
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         R.render(scene, opts, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    names = {r[0] for r in ranges}
+    ranges_ms = {name: 0.0 for name in names}
     kernels, mt_events = {}, []
     for ev in prof.events():
+        if ev.name in names:
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                ranges_ms[ev.name] += ev.device_time_total / 1e3
+            continue
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us() / 1e3
@@ -920,6 +981,9 @@ def profile_render(label, scene, opts, device, **extra):
             for name in REPLACES}
     r = dict(phase="profile", scene=label, **extra, wall_ms=wall * 1e3,
              device_busy_ms=busy,
+             ranges_ms={k: v or None for k, v in ranges_ms.items()},
+             ranges_share_of_busy={k: v / max(busy, 1e-9) if v else None
+                                   for k, v in ranges_ms.items()},
              device_idle_share=1.0 - busy / (wall * 1e3), traversal_ms=trav,
              traversal_share_of_busy=sum(trav.values()) / max(busy, 1e-9),
              mt_best_by_mode=by_mode, mt_best_calls=len(modes),
@@ -946,6 +1010,70 @@ def fused_visibility(scene, segs, needs):
     return list(isect.occluded(scene, *cat).split(sizes))
 
 
+def rows_gather_photons(grid, q, accum, init):
+    """photon_grid.gather_photons as the port first wrote it: each slot
+    step gathers whole 12-float rows (grid.packed[idx]). The same
+    arithmetic as the shipped column takes; only for phase "lookup"."""
+    import numpy as np
+    import torch
+    from tpuprt_torch.accel import photon_grid as pg
+    if grid.count == 0 or grid.bucket_cap == 0:
+        return init
+    r2 = float(np.float32(grid.radius * grid.radius))
+    rad = torch.tensor(grid.radius, dtype=torch.float32, device=q.device)
+    base = torch.floor(torch.clamp(torch.nan_to_num(q / rad), -2.0 ** 30,
+                                   2.0 ** 30)).to(torch.int64)
+    cells = base[:, None, :] + torch.from_numpy(pg._NBR).to(q.device)
+    b = pg._cell_hash(cells[..., 0], cells[..., 1], cells[..., 2],
+                      grid.n_buckets)
+    s_all = grid.start[b].to(torch.int64)
+    cnt_all = grid.start[b + 1].to(torch.int64) - s_all
+    carry = init
+    for j in range(grid.bucket_cap):
+        rows = grid.packed[torch.clamp(s_all + j, max=grid.count - 1)]
+        dd = rows[..., 0:3] - q[:, None, :]
+        d2 = dd[..., 0] * dd[..., 0] + dd[..., 1] * dd[..., 1] + \
+            dd[..., 2] * dd[..., 2]
+        w = (cnt_all > j) & (d2 < r2)
+        carry = accum(carry, rows[..., 3:6], rows[..., 6:9], w)
+    return carry
+
+
+def lookup_turns(label, scene, maps, rays, reps=3):
+    """Phase "lookup": lphoton of the three maps at the hit points of a
+    final-gather block's rays (a matte BSDF there), with the photons read
+    as whole rows (rows_gather_photons) and as the shipped column takes, in
+    the turns rows, cols, cols, rows (`timed`: device ms); the estimates
+    must be equal."""
+    import torch
+    from tpuprt_torch.accel import intersect as isect
+    from tpuprt_torch.accel import photon_grid as pg
+    from tpuprt_torch.integrators import common
+    from tpuprt_torch.integrators import photonmap as pm
+    o, d = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+    t, pid, hit = isect.intersect_ids(scene, o, d, rays[6], rays[7])
+    dg = isect.hit_geometry(scene, pid, o, d, t)
+    bsdf = common.make_bsdf_at(scene, dg)
+
+    def lookups():
+        return sum(pm.lphoton(getattr(maps, k), bsdf, -d, dg["p"], hit,
+                              may_glossy=False)
+                   for k in ("direct", "caustic", "indirect"))
+    runs = {"rows": rows_gather_photons, "cols": pg.gather_photons}
+    times, out = {k: [] for k in runs}, {}
+    for k in ("rows", "cols", "cols", "rows"):
+        with patched(pg, "gather_photons", runs[k]), \
+                patched(pm, "gather_photons", runs[k]):
+            ms, out[k], host_ms = timed(lookups, reps)
+        times[k].append(ms)
+    equal = bool(torch.equal(out["rows"], out["cols"]))
+    emit(phase="lookup", set=label, points=int(o.shape[0]),
+         hits=int(hit.sum()), turns=["rows", "cols", "cols", "rows"],
+         ms=times, equal=equal)
+    if not equal:
+        raise AssertionError(f"{label}: the two lookups disagree")
+
+
 def dispatch_turns(label, scene, opts, device,
                    order=("split", "fused", "fused", "split")):
     """Profiled renders (profile_render) with the visibility segments
@@ -963,6 +1091,88 @@ def dispatch_turns(label, scene, opts, device,
             "wall_ms", "device_busy_ms", "device_idle_share",
             "mt_best_by_mode")})
     emit(phase="dispatch", scene=label, order=list(order), runs=out)
+
+
+def photon_maps(label, scene, prm, seed):
+    """Phase "photons": build_maps on the card (the scene's tables on it),
+    with its batches, paths shot, per map the photons kept and stored,
+    n_paths, the batch that filled it, buckets and bucket cap, and its
+    seconds: shooting (the device's work, its launches and the copy of
+    the deposits to the host), the host's collection, and the rest (the
+    grids' host build and copy to the card). Returns the maps."""
+    import torch
+    from tpuprt_torch.integrators import photonmap as pm
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = pm.build_maps(scene, prm, seed, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shoot, host = sum(stats.pop("shoot_s")), sum(stats.pop("host_s"))
+    emit(phase="photons", scene=label, wall_s=wall, shoot_s=shoot,
+         host_collect_s=host, grid_build_s=wall - shoot - host,
+         params=prm._asdict(), **stats)
+    return maps
+
+
+def photon_render(label, path, device, reps=2, ref_exr=None):
+    """bench.py's bench_config6 on the card: load_scene -> render (photon
+    shooting, the map build, the pool; f16 readback) in one wall. The
+    first run is the main path's (the counts 0 before it, read after it;
+    its image written and read back; its peak device memory), then the
+    best of `reps` more. Fails unless mt_best launched in both modes and
+    the image is finite. The band against `ref_exr` is information only.
+    Returns the line."""
+    import numpy as np
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.io.exr import read_exr, write_exr
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch.scene.parser import load_scene
+
+    def run():
+        t0 = time.perf_counter()
+        scene, opts = load_scene(path)
+        opts = opts._replace(half_readback=True)
+        rgb, alpha = R.render(scene, opts, device=device)
+        return rgb, alpha, opts, time.perf_counter() - t0
+    counters = (bvh_cuda.launches, mt_cuda.launches)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rgb, alpha, opts, first_s = run()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for c in counters for k, v in c.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, opts.filename)
+        write_exr(out, rgb, alpha)
+        back, _ = read_exr(out)
+    wall = min(run()[3] for _ in range(reps))
+    if not (launches["mt_best"] and launches["mt_best_any"]):
+        raise AssertionError(f"{label}: mt_best did not launch in both "
+                             f"modes: {launches}")
+    if rgb.shape != (opts.yres, opts.xres, 3) or back.shape != rgb.shape \
+            or not np.isfinite(rgb).all():
+        raise AssertionError(f"{label}: bad image {rgb.shape}")
+    spp = opts.sampler.pixelsamples
+    r = dict(phase="render", scene=label, shape=list(rgb.shape), spp=spp,
+             photon=opts.photon._asdict(), launches=launches,
+             mt_best_nearest=launches["mt_best"] - launches["mt_best_any"],
+             mt_best_any=launches["mt_best_any"], finite=True,
+             first_wall_s=first_s, wall_s=wall, walls_timed=reps,
+             samples_per_s=opts.xres * opts.yres * spp / wall,
+             pbrt_wall_s=PBRT_BENCH6_WALL,
+             pbrt_wall_over_wall=PBRT_BENCH6_WALL / wall,
+             peak_device_bytes=peak)
+    if ref_exr:
+        rel, mean = band(rgb, read_exr(ref_exr)[0])
+        r.update(info_band_ref=os.path.relpath(ref_exr, ROOT),
+                 info_band_rel=rel, info_band_mean=mean,
+                 info_band_limits_of_golden6=[BAND6_REL, BAND6_MEAN])
+    emit(**r)
+    return r
 
 
 # The C interfaces of the earlier bvh_tiles.cu and bvh_rows.cu (commit
@@ -1512,9 +1722,10 @@ def main(argv=None):
     del b3, c2
 
     # 14. Main path, Whitted: config1 as its file asks, bench.py's pool.
-    def golden_render(label, path, golden, band_limits, walks=()):
+    def golden_render(label, path, golden, band_limits, walks=(), need=(),
+                      text=None):
         t0 = time.perf_counter()
-        sc, so = load_scene(path)
+        sc, so = load_scene_string(text) if text else load_scene(path)
         emit(phase="load", scene=label, seconds=time.perf_counter() - t0,
              triangles=sc.triangles.count, quadrics=sc.quadrics.count,
              accel=type(sc.accel).__name__, integrator=so.integrator,
@@ -1528,7 +1739,7 @@ def main(argv=None):
                 walk_timing(f"{label}/camera", sc_d, cam, any_hit)
             del cam
         rgb, launches[label], first_s, wall = render_path(label, sc, so,
-                                                          device, [])
+                                                          device, need)
         rel, mean = band(rgb, read_exr(golden)[0])
         spp = smp.samples_per_pixel(so.sampler)
         emit(phase="render", scene=label, shape=list(rgb.shape), spp=spp,
@@ -1563,6 +1774,70 @@ def main(argv=None):
     if args.profile:
         profile_render("config5_huge", c5, c5_opts, device)
     del c5
+
+    # 18. mt_best vs its plain version on bench6 (photonmap, 10 triangles,
+    # a disk light, a mirror sphere): the first shooting batch's rays at
+    # depth 0 and 2, and, from a render with the maps built, its biggest
+    # final-gather block (nearest) and NEE shadow batch (any hit).
+    from tpuprt_torch.integrators import photonmap as pm
+    t0 = time.perf_counter()
+    b6, b6_opts = load_scene(BENCH6)
+    prm6 = b6_opts.photon
+    emit(phase="load", scene="bench6", seconds=time.perf_counter() - t0,
+         triangles=b6.triangles.count, quadrics=b6.quadrics.count,
+         accel=None, integrator=b6_opts.integrator, photon=prm6._asdict())
+    assert b6.accel is None and b6_opts.integrator == "photonmap"
+    b6_d = to_device(b6, device)
+    b6_tris = mt_cuda.pack_table(b6_d.triangles)
+    shots = []
+
+    def shot_spy(rays, tris, any_hit=False):
+        shots.append(rays.clone())
+        return real_mt(rays, tris, any_hit=any_hit)
+    with patched(mt_cuda, "mt_best", shot_spy) as real_mt:
+        pm.shoot_batch(b6_d, 0, prm6.batch, prm6.shoot_depth, b6_opts.seed)
+    for depth in (0, 2):
+        res["mt_best"] += mt_parity(f"bench6/shoot_depth{depth}", b6_tris,
+                                    shots[depth], modes=(False,))
+    del shots
+
+    # 19. bench6's photon maps, built on the card.
+    maps6 = photon_maps("bench6", b6_d, prm6, b6_opts.seed)
+    got = capture_rays(b6, b6_opts, device, mt_cuda, "mt_best", 0,
+                       maps=maps6)
+    assert got[False].shape[1] > b6_opts.chunk_size, got[False].shape
+    res["mt_best"] += mt_parity("bench6/gather", b6_tris, got[False],
+                                modes=(False,))
+    res["mt_best"] += mt_parity("bench6/shadow", b6_tris, got[True],
+                                modes=(True,))
+    if args.profile:
+        lookup_turns("bench6/gather", b6_d, maps6, got[False])
+    del got, maps6, b6_d, b6_tris
+
+    # 20. Main path, photonmap: config6 as its file asks (64x64 x 4 spp,
+    # final gather of 8) inside golden6's band.
+    golden_render("config6", CONFIG6, GOLDEN6, (BAND6_REL, BAND6_MEAN),
+                  need=["mt_best", "mt_best_any"])
+    # 21. Main path, photonmap at full size: bench6 (final gather of 16)
+    # and bench6ng (none) as bench.py's bench_config6 times them.
+    for label, path in (("bench6", BENCH6), ("bench6ng", BENCH6NG)):
+        r = photon_render(label, path, device,
+                          ref_exr=path.replace(".pbrt", ".exr"))
+        launches[label] = r["launches"]
+    if args.profile:
+        profile_render("bench6", b6, b6_opts._replace(half_readback=True),
+                       device, ranges=(
+                           ("photon_lookup", pm, "lphoton"),
+                           ("photon_radiance", pm, "photon_radiance"),
+                           ("build_maps", pm, "build_maps")))
+    del b6
+    # 22. A BVH that holds quadrics: config2 with Accelerator "bvh" (its
+    # plain skip-link walk timed on 2^17 camera rays), inside golden2's
+    # band.
+    with open(CONFIG2) as f:
+        c2_bvh = f.read().replace('Accelerator "grid"', 'Accelerator "bvh"')
+    golden_render("config2/bvh", CONFIG2, GOLDEN2, (BAND2_REL, BAND2_MEAN),
+                  walks=(False, True), text=c2_bvh)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -1608,7 +1883,16 @@ def main(argv=None):
                 bench3_launches=launches["bench3"]["mt_best"],
                 bench3_launches_any_hit=launches["bench3"]["mt_best_any"],
                 bench3_camera={k: b3_cam[k] for k in (
-                    "ms", "host_ms", "plain_ms", "bound_ms", "bound_by")})
+                    "ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
+                # The photonmap paths: launches by mode, bench6's sets.
+                **{f"{p}_launches": launches[p]["mt_best"]
+                   for p in ("config6", "bench6", "bench6ng")},
+                **{f"{p}_launches_any_hit": launches[p]["mt_best_any"]
+                   for p in ("config6", "bench6", "bench6ng")},
+                bench6_sets={r["set"]: {k: r[k] for k in (
+                    "rays", "mode", "ms", "host_ms", "plain_ms", "bound_ms",
+                    "bound_by")} for r in rs if r["set"].startswith(
+                        "bench6/")})
         kernels.append(entry)
     emit(kernels=kernels,
          library_note="no PyTorch call computes a BVH walk or a nearest "

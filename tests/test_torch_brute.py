@@ -258,7 +258,7 @@ def grid_mesh(n):
     ("", grid_mesh(6), "grid"),                       # auto, 72 prims
     ('Accelerator "grid"', MESH, "grid"),
     ('Accelerator "kdtree"', MESH, "kdtree"),
-    ('Accelerator "bvh"', 'Shape "sphere"\n' + MESH, "quadrics inside"),
+    ('Accelerator "bvh"', 'Shape "sphere"\n' + MESH, "bvh"),
     ("", 'AreaLightSource "area"\n' + MESH, "area lights on shape"),
     ("", 'AreaLightSource "area"\nShape "cone"\n', "area lights on shape"),
     ("", 'AreaLightSource "goniometric"\n' + MESH, "not ported"),

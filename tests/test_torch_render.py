@@ -111,7 +111,9 @@ def test_port_imports_no_jax():
             "tpuprt_torch.integrators.path_wavefront, "
             "tpuprt_torch.accel.grid, tpuprt_torch.accel.grid_build, "
             "tpuprt_torch.accel.kdtree, tpuprt_torch.accel.kdtree_build, "
-            "tpuprt_torch.samplers.samplers, tpuprt_torch.lights.lights; "
+            "tpuprt_torch.samplers.samplers, tpuprt_torch.lights.lights, "
+            "tpuprt_torch.lights.emission, tpuprt_torch.accel.photon_grid, "
+            "tpuprt_torch.integrators.photonmap, tpuprt_torch.accel.bvh; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

@@ -2,9 +2,10 @@
 ``tpuprt/``), for an NVIDIA Hopper GPU.
 
 Module layout and names follow ``tpuprt`` one to one, so each counterpart is
-easy to find. Plain tensor code is PyTorch; the BVH traversal kernels are
-hand-written CUDA (``ops/csrc/bvh_tiles.cu``, ``ops/csrc/bvh_rows.cu``).
-The package imports neither
+easy to find. Plain tensor code is PyTorch; the BVH traversal kernels and
+the dense ray-triangle kernel are hand-written CUDA
+(``ops/csrc/bvh_tiles.cu``, ``ops/csrc/bvh_rows.cu``,
+``ops/csrc/mt_best.cu``). The package imports neither
 ``jax`` nor ``tpuprt``; only the tests import both to hold the port against
 the reference.
 """

@@ -19,6 +19,7 @@ import torch
 
 from ..native import GXX, build_shared
 from ..scene.data import BvhAccel
+from .grid_build import prim_bounds
 
 LEAF_K = 8
 BRANCH = 8
@@ -42,10 +43,10 @@ def _native_builder():
 
 def build_rows(lo, hi, nq, tri9):
     """Binned-SAH wide BVH over prim AABBs (nq quadrics first, then
-    triangles with packed verts tri9; the port's BVHs hold no quadrics, so
-    nq is 0). Shared by the scene BVH (build_bvh) and the per-prototype BLAS
-    builds (accel/instances.py). Returns (rows f32[NN,96],
-    prim_ids i32[NN,LEAF_K], nn)."""
+    triangles with packed verts tri9; a leaf inlines its triangles'
+    vertices, a quadric's slot stays zero). Shared by the scene BVH
+    (build_bvh) and the per-prototype BLAS builds (accel/instances.py,
+    nq 0). Returns (rows f32[NN,96], prim_ids i32[NN,LEAF_K], nn)."""
     lo = np.ascontiguousarray(lo, np.float32)
     hi = np.ascontiguousarray(hi, np.float32)
     tri9 = np.ascontiguousarray(tri9, np.float32)
@@ -168,22 +169,33 @@ def build_tiles(rows, prim_ids, nn: int, leaf_k: int = LEAF_K, links=None):
             skip.astype(np.int32), meta.astype(np.int32))
 
 
-def build_bvh(tri) -> BvhAccel:
-    """BVH over a host TriangleTable (numpy-backed tensors): the rows,
-    padded to NODE_COLS, the tree's depth (the row walk's stack), the
-    child-id table the tile walk descends by, and the tile format, or no
-    tiles (nodesT None) when build_tiles rejects the tree; the traversal
-    then walks the rows (ops/bvh_cuda.intersect)."""
+def build_bvh(tri, quad=None) -> BvhAccel:
+    """BVH over a host TriangleTable and QuadricTable (numpy-backed
+    tensors; prims the quadrics first, then the triangles, as
+    tpuprt/accel/bvh_build.py:233-266 orders them): the rows, padded to
+    NODE_COLS, the tree's depth (the row walk's stack), the child-id table
+    the tile walk descends by, and the tile format, or no tiles (nodesT
+    None) when the tree holds quadrics or build_tiles rejects it. The
+    front end walks the tiles, else the rows: by the row-walk kernel
+    without quadrics, by the plain skip-link walk with them
+    (accel/bvh.py)."""
+    nq = quad.count if quad is not None else 0
     idx = tri.idx.numpy()
     verts = tri.verts.numpy()
     pts = verts[idx]                                     # [T,3,3]
     lo = pts.min(1).astype(np.float32)
     hi = pts.max(1).astype(np.float32)
+    if nq:
+        qlo, qhi = prim_bounds(quad, None)
+        lo = np.concatenate([qlo.astype(np.float32), lo])
+        hi = np.concatenate([qhi.astype(np.float32), hi])
     tri9 = np.concatenate([verts[idx[:, 0]], verts[idx[:, 1]],
-                           verts[idx[:, 2]]], axis=1).astype(np.float32)
-    rows, prim_ids, nn = build_rows(lo, hi, 0, tri9)
+                           verts[idx[:, 2]]], axis=1).astype(np.float32) \
+        if tri.count else np.zeros((1, 9), np.float32)
+    rows, prim_ids, nn = build_rows(lo, hi, nq, tri9)
     links = tree_links(rows, nn)
-    built = build_tiles(rows, prim_ids, nn, LEAF_K, links)
+    built = build_tiles(rows, prim_ids, nn, LEAF_K, links) if nq == 0 \
+        else None
     tiles = nskip = nmeta = None
     if built is not None:
         tiles, nskip, nmeta = (torch.from_numpy(a) for a in built)
@@ -196,4 +208,4 @@ def build_bvh(tri) -> BvhAccel:
         tri9=torch.from_numpy(tri9), nodesT=tiles, nodeskip=nskip,
         nodemeta=nmeta, child=torch.from_numpy(child_table(*links[1:])),
         max_depth=int(links[0].max(initial=0)), n_nodes=nn, leaf_k=LEAF_K,
-        n_quadrics=0)
+        n_quadrics=nq)

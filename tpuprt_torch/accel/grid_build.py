@@ -58,7 +58,7 @@ def prim_bounds(quad: QuadricTable, tri: TriangleTable):
             wc = corners @ o2w[i][:3, :3].T + o2w[i][:3, 3]
             los.append(wc.min(0))
             his.append(wc.max(0))
-    if tri.count:
+    if tri is not None and tri.count:
         p = tri.verts.numpy()[tri.idx.numpy()]       # [T,3,3]
         los.extend(p.min(1))
         his.extend(p.max(1))

@@ -319,6 +319,20 @@ def _matches(lobe_flags, mask):
     return ((lobe_flags & mask) == lobe_flags) & (lobe_flags > 0)
 
 
+def num_components(b: BsdfBatch, mask):
+    """BSDF::NumComponents(flags): the lobes matching `mask`, per lane."""
+    return _matches(b.lobes.flags, mask).to(torch.int32).sum(dim=-1)
+
+
+def rho_approx(b: BsdfBatch, mask=ALL & ~SPECULAR):
+    """tpuprt's hemispherical reflectance (bsdf.py:502-511): the sum of R
+    over the matching lobes; exact for Lambertian, tpuprt's stand-in for
+    the reference's 16-sample estimate (reflection.cpp:355-392) otherwise.
+    The photon map's diffuse estimate multiplies its flux sums by it."""
+    match = _matches(b.lobes.flags, mask)
+    return torch.where(match[..., None], b.lobes.R, 0.0).sum(dim=-2)
+
+
 def f(b: BsdfBatch, wo_w, wi_w, mask=ALL):
     """BSDF::f with geometric-normal sidedness (reflection.cpp:480-494)."""
     wo = world_to_local(b, wo_w)[..., None, :]

@@ -48,6 +48,11 @@ def uniform_sample_sphere(u1, u2):
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
+def uniform_sphere_pdf():
+    """core/mc.cpp:78-80: 1 / (4 pi)."""
+    return 1.0 / (4.0 * math.pi)
+
+
 def uniform_sample_cone_frame(u1, u2, costhetamax, x, y, z):
     """core/mc.cpp:150-158 -- a direction uniform in the cone of half-angle
     acos(costhetamax) about z, in the frame (x, y, z)."""

@@ -8,6 +8,7 @@ intermediate leaves int64's range.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -111,3 +112,24 @@ def ld_shuffled_2d(sample_idx, pixel_hash, dim):
     sx = hash_u32(pixel_hash, dim, 0x2D2D2D2D)
     sy = hash_u32(pixel_hash, dim, 0x3D3D3D3D)
     return sample02(sample_idx, sx, sy)
+
+
+def uniform2(*counters):
+    """Two decorrelated uniforms from one counter set (rng.py:52-54)."""
+    return uniform(*counters, 0x55AA55AA), uniform(*counters, 0x33CC33CC)
+
+
+def radical_inverse(n, base: int) -> torch.Tensor:
+    """RadicalInverse(n, base) (core/sampling.h:83-94; rng.py:61-75): n an
+    int tensor holding uint32 ids below 2^31, a digit loop in f32 in the
+    reference's order (val += d * inv_bi; inv_bi *= inv_base)."""
+    n = n.to(torch.int64)
+    inv_base = torch.tensor(float(np.float32(1.0 / base)),
+                            dtype=torch.float32, device=n.device)
+    val = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    inv_bi = inv_base.expand(n.shape)
+    for _ in range(int(np.ceil(32 / np.log2(base)))):
+        val = val + (n % base).to(torch.float32) * inv_bi
+        n = n // base
+        inv_bi = inv_bi * inv_base
+    return val

@@ -1,6 +1,6 @@
 """Wavefront rendering with path regeneration (port of
 tpuprt/integrators/path_wavefront.py, modes "path", "directlighting" with
-strategy "all", and "whitted").
+strategy "all", "whitted" and "photonmap").
 
 One fixed-size lane pool; the moment a lane's path ends, its radiance is
 splatted to the film and the lane restarts with the next (pixel, sample)
@@ -15,7 +15,11 @@ continuation, Russian roulette with probability 0.5 from bounce 3 on.
 Mode "directlighting" is directlighting.cpp: every light at every vertex
 and a specular-only continuation. Mode "whitted" is whitted.cpp:44-140:
 every light with one sample and no MIS, a specular-only continuation that
-carries the ray differentials across bounces.
+carries the ray differentials across bounces. Mode "photonmap" is
+photonmap.cpp:299-431: Le at every hit, at every vertex the photon maps'
+radiance core (integrators/photonmap.photon_radiance: all lights' direct
+lighting, the caustic map, the indirect map or the final gather), and the
+specular-only continuation.
 """
 from __future__ import annotations
 
@@ -32,11 +36,12 @@ from ..film import film as film_mod
 from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import LIGHT_AREA, SceneData
-from . import common
+from . import common, photonmap
 
 _EPS = vm.RAY_EPSILON
 # Each mode's salt of the per-pixel hash (path_wavefront.py:220-221).
-SALTS = {"path": 0xBA5E, "directlighting": 0xD112, "whitted": 0x817}
+SALTS = {"path": 0xBA5E, "directlighting": 0xD112, "whitted": 0x817,
+         "photonmap": 0x9B1}
 # Russian roulette from this bounce on (path_wavefront.py:434, :478).
 RR_START = 3
 
@@ -126,9 +131,10 @@ def _whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce, alive):
 
 def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
           xres, yres, xstart, xcount, ystart, spp, filter_kind,
-          filter_xwidth, filter_ywidth, mode):
+          filter_xwidth, filter_ywidth, mode, maps=None, prm=None):
     """One wavefront pass (path_wavefront.py:181-420) in `mode` ("path",
-    "directlighting" or "whitted"): bounce every live lane once, splat +
+    "directlighting", "whitted" or "photonmap", whose PhotonMaps and
+    PhotonParams are `maps` and `prm`): bounce every live lane once, splat +
     regenerate finished lanes. Returns (state, cursor)."""
     alive = st["alive"]
     px, py, s_idx, bounce = st["px"], st["py"], st["s_idx"], st["bounce"]
@@ -173,6 +179,9 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     if scene.lights.count > 0:
         if mode == "whitted":
             Ld = _whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce, alive)
+        elif mode == "photonmap":
+            Ld = photonmap.photon_radiance(scene, maps, prm, bsdf, wo, p, ns,
+                                           alive, ph, s_idx, bounce)
         else:
             ld = _path_ld if path else _direct_ld
             Ld = ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce,
@@ -185,7 +194,8 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
         c3 = smp.integrator_1d(cfg, px, py, s_idx, bounce, 21, seed)
         bs = B.sample_f(bsdf, wo, c1, c2, c3, B.ALL)
     else:
-        # Specular-only continuation (directlighting.cpp, whitted.cpp).
+        # Specular-only continuation (directlighting.cpp, whitted.cpp,
+        # photonmap.cpp:366-425).
         c1 = rng.uniform(ph, s_idx, bounce, 0x5A, 1)
         c2 = rng.uniform(ph, s_idx, bounce, 0x5A, 2)
         c3 = rng.uniform(ph, s_idx, bounce, 0x5A, 3)
@@ -278,14 +288,21 @@ def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
     return st
 
 
-def render(scene: SceneData, opts, device):
+def render(scene: SceneData, opts, device, maps=None):
     """Full-frame wavefront render of a scene whose tables live on
-    `device`. Returns (rgb, alpha) as numpy f32 arrays."""
+    `device`. Returns (rgb, alpha) as numpy f32 arrays. Mode "photonmap"
+    renders with `maps` (photonmap.PhotonMaps on `device`), shooting them
+    first when none are given (path_wavefront.py:541-545)."""
     if opts.integrator not in SALTS:
         raise NotImplementedError(
             f'integrator "{opts.integrator}" is not ported (path, whitted, '
-            'and directlighting with strategy "all")')
+            'photonmap, and directlighting with strategy "all")')
     lt.check(scene.lights)    # once per render: it reads a table
+    prm = None
+    if opts.integrator == "photonmap":
+        prm = opts.photon or photonmap.PhotonParams()
+        if maps is None:
+            maps = photonmap.build_maps(scene, prm, opts.seed)
     film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)
     spp = smp.samples_per_pixel(opts.sampler)
@@ -306,7 +323,8 @@ def render(scene: SceneData, opts, device):
                            filter_kind=opts.filter_kind,
                            filter_xwidth=opts.filter_xwidth,
                            filter_ywidth=opts.filter_ywidth,
-                           mode=opts.integrator, **kw)
+                           mode=opts.integrator, maps=maps, prm=prm,
+                           **kw)
         if not bool(st["alive"].any()):
             break
     rgb, alpha = film_mod.develop(film)

@@ -10,6 +10,7 @@ Anything else raises NotImplementedError. The BVH's rows are padded to 128 colum
 stores them, and get the port's child-id table and depth
 (accel/bvh_build.child_table); an instance table gets the port's top-level
 BVH over its entries (accel/instances.build_top). tpuprt carries neither.
+photon_maps_from_numpy does the same for a tpuprt PhotonMaps.
 """
 from __future__ import annotations
 
@@ -87,3 +88,22 @@ def from_numpy_tables(tables: dict, device) -> D.SceneData:
     return dataclasses.replace(scene, **{
         k: None if tables.get(k) is None else
         _build(cls, tables[k], device, k) for k, cls in nested.items()})
+
+
+def photon_maps_from_numpy(tables: dict, device):
+    """Port PhotonMaps from the numpy tables of a tpuprt PhotonMaps (each
+    map's fields as a dict; its p, wi and alpha columns, which `packed`
+    repeats, are dropped)."""
+    from ..accel.photon_grid import PhotonGrid
+    from ..integrators.photonmap import PhotonMaps
+
+    def grid(d):
+        return PhotonGrid(
+            packed=torch.tensor(d["packed"], device=device),
+            start=torch.tensor(d["start"], device=device),
+            n_paths=torch.tensor(d["n_paths"], dtype=torch.float32,
+                                 device=device),
+            radius=float(d["radius"]), n_buckets=int(d["n_buckets"]),
+            bucket_cap=int(d["bucket_cap"]), count=int(d["count"]))
+    return PhotonMaps(**{k: grid(tables[k]) for k in
+                         ("caustic", "direct", "indirect")})

@@ -472,10 +472,7 @@ class SceneBuilder:
                            "max_prims", "max_depth")}
             accel = build_kdtree(quad, tri, **kw)
         elif kind == "bvh" or (kind == "auto" and nprims > 4096):
-            if qs:
-                raise NotImplementedError(
-                    "quadrics inside a BVH are not ported")
-            accel = build_bvh(tri)
+            accel = build_bvh(tri, quad)
         elif kind == "grid" or (kind == "auto" and nprims > 64):
             accel = build_grid(quad, tri)
         return D.SceneData(

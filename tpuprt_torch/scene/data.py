@@ -189,7 +189,9 @@ class BvhAccel:
     sizes the row walk's stack (None: not recorded, and the row walk
     refuses the tree). The front end walks the tiles when there are any,
     else the rows; render() copies only what that walk reads to the
-    card."""
+    card. A tree over quadrics too (``n_quadrics`` > 0, prim ids as in
+    GridAccel; a quadric's leaf slot inlines no vertices) has no tiles and
+    takes the plain skip-link walk (accel/bvh.walk_skip_links)."""
     bounds_lo: torch.Tensor = None   # f32[3]
     bounds_hi: torch.Tensor = None   # f32[3]
     nodes: torch.Tensor = None       # f32[NN, 128]

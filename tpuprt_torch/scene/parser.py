@@ -2,8 +2,9 @@
 tpuprt/scene/parser.py for the statements the port renders).
 
 Statements: Film, LookAt, Camera "perspective", Sampler, PixelFilter,
-SurfaceIntegrator "directlighting", "path" and "whitted", Accelerator (with
-the kd-tree's SAH knobs), WorldBegin/End, AttributeBegin/End,
+SurfaceIntegrator "directlighting", "path", "whitted" and "photonmap",
+Accelerator (with the kd-tree's SAH knobs), WorldBegin/End,
+AttributeBegin/End,
 TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
 ReverseOrientation, Texture "checkerboard" and "constant", Material
 "matte", "plastic", "glass" and "mirror", LightSource "point",
@@ -29,6 +30,7 @@ import numpy as np
 from ..cameras import cameras as cam
 from ..core import transform as tfm
 from ..filters.filters import DEFAULT_WIDTHS
+from ..integrators.photonmap import PhotonParams
 from ..samplers.samplers import SamplerConfig
 from ..textures.graph import TexNodeMeta
 from . import data as D
@@ -512,16 +514,32 @@ class PbrtParser:
                 f'pixel filter "{self.filter_name}" is not ported')
         fw = DEFAULT_WIDTHS[self.filter_name]
         if self.integrator_name not in ("directlighting", "path",
-                                        "whitted"):
+                                        "whitted", "photonmap"):
             raise NotImplementedError(
                 f'integrator "{self.integrator_name}" is not ported')
+        photon = ()
+        if self.integrator_name == "photonmap":
+            # CreateSurfaceIntegrator's parameters (photonmap.cpp:511-524);
+            # finalgather defaults to true here, as tpuprt's parser reads
+            # it (tpuprt/scene/parser.py:878-890).
+            ip = self.integrator_params
+            photon = PhotonParams(
+                caustic=ip.find_one("causticphotons", 20000),
+                direct=ip.find_one("directphotons", 100000),
+                indirect=ip.find_one("indirectphotons", 100000),
+                max_dist=ip.find_one("maxdist", 0.1),
+                final_gather=bool(ip.find_one("finalgather", True)),
+                gather_samples=ip.find_one("finalgathersamples", 32),
+                direct_with_photons=bool(ip.find_one("directwithphotons",
+                                                     False)))
         opts = RenderOptions(
             xres=xres, yres=yres, sampler=scfg, filter_kind=self.filter_name,
             filter_xwidth=self.filter_params.find_one("xwidth", fw[0]),
             filter_ywidth=self.filter_params.find_one("ywidth", fw[1]),
             integrator=self.integrator_name,
             max_depth=self.integrator_params.find_one("maxdepth", 5),
-            filename=fp.find_one("filename", "pbrt.exr"), crop=crop)
+            filename=fp.find_one("filename", "pbrt.exr"), crop=crop,
+            photon=photon)
         return self.builder.build(), opts
 
 
