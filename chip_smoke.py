@@ -101,6 +101,23 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    disk: rows only, walked by the plain skip-link walk): the walk timed on
    2^17 camera rays, nearest and any-hit, then the render inside golden2's
    band.
+23. parity -- mt_best on the chunked driver's paths (configs 7-10: the
+   bench6 Cornell box, 12 prims, so every ray goes through it), each set
+   captured from a render at test_golden's settings: config8's largest
+   shadow block of the virtual lights (igi, any hit), config10's
+   connection batch (bidirectional, any hit), config7's largest
+   final-gather ray set (exphotonmap, nearest) and config9's largest
+   estimate block (irradiance cache, nearest), bit for bit.
+24. render -- configs 7 (exphotonmap), 8 (igi, 16 spp), 9 (irradiance
+   cache, 16 spp) and 10 (bidirectional) at 64x64 through
+   load_scene_string -> render -> write_exr, inside the bands of
+   tests/test_golden.py:93-117: mt_best launched in both modes, its
+   launches by mode, the preprocess's seconds (the maps and radiance
+   photons, the virtual lights, the probe cache).
+25. render -- the same four at bench6's film (256x256, each file's spp) as
+   bench_config6 times bench6 (load -> preprocess -> render in one wall,
+   the first run the main path's, then the best of 2): samples/s, the
+   peak device memory, the image finite.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -125,7 +142,9 @@ fused, split, the others split, fused), and profiles bench6 (its photon
 shooting included) with the device time of the photon lookups (lphoton),
 of photon_radiance and of build_maps (ranges_ms), and times the lookup of
 a final-gather block's hit points with whole-row gathers and with the
-shipped column takes (phase "lookup": rows, cols, cols, rows).
+shipped column takes (phase "lookup": rows, cols, cols, rows), and
+profiles configs 7-10 at 256x256 (device busy and idle shares, the top
+device ops).
 
 ``--old DIR`` runs no smoke phase: it times the earlier ``bvh_tiles.cu``
 and ``bvh_rows.cu`` of commit 2a258fc (the skip-link walks), copied into
@@ -190,6 +209,12 @@ BAND6_REL, BAND6_MEAN = 0.10, 0.05
 # pbrt-v1's wall for bench6 on the CPU of the JAX package's image, single
 # thread, shooting included (bench.py PBRT_BENCH6_WALL).
 PBRT_BENCH6_WALL = 80.0
+# Configs 7-10 (the GI integrators of the chunked driver): the spp and the
+# limits (blurred rel, mean) tests/test_golden.py:93-117 hold tpuprt to;
+# None: the file's spp. GI_RES: the film of the full-size phase, bench6's.
+GI_GOLDEN = {"config7": (None, 0.10, 0.05), "config8": (16, 0.15, 0.05),
+             "config9": (16, 0.10, 0.04), "config10": (None, 0.12, 0.04)}
+GI_RES = 256
 # The plain grid and kd-tree walks are timed on this many camera rays,
 # one pool's worth (bench.py's 2^17 lanes).
 WALK_RAYS = 1 << 17
@@ -726,7 +751,7 @@ def patched(module, name, fn):
 
 
 def capture_rays(scene, opts, device, module, name, at, period=None,
-                 maps=None):
+                 maps=None, aux=None):
     """The packed rays of one render's calls of the kernel wrapper
     module.name (rays its argument number `at`), as {any_hit: rays of the
     call with the most rays that have a non-empty window} (the first passes
@@ -734,8 +759,9 @@ def capture_rays(scene, opts, device, module, name, at, period=None,
     the render calls the wrapper p times a pass: {(k, any_hit): rays of the
     k-th call of one pass}, the pass whose any-hit calls have the most such
     rays. `maps`: a photonmap render's PhotonMaps (none: the render shoots
-    its own, and those launches count in the period). Not a main-path run:
-    the counts are reset before that."""
+    its own, and those launches count in the period); `aux`: a chunked
+    render's preprocess state (none: the render runs its preprocess). Not a
+    main-path run: the counts are reset before that."""
     from tpuprt_torch import render as R
     got, cur, n = {}, {}, [0, -1]
 
@@ -759,7 +785,7 @@ def capture_rays(scene, opts, device, module, name, at, period=None,
             got[any_hit] = (live, rays.clone())
         return real(*a, **kw)
     with patched(module, name, spy) as real:
-        R.render(scene, opts, device=device, maps=maps)
+        R.render(scene, opts, device=device, maps=maps, aux=aux)
     return {k: v[1] for k, v in got.items()}
 
 
@@ -1173,6 +1199,116 @@ def photon_render(label, path, device, reps=2, ref_exr=None):
                  info_band_limits_of_golden6=[BAND6_REL, BAND6_MEAN])
     emit(**r)
     return r
+
+
+def gi_text(name, res=None, spp=None):
+    """scenes/<name>.pbrt (configs 7-10, a 64x64 film) with the film at
+    res x res and `spp` pixel samples where given."""
+    with open(os.path.join(ROOT, "scenes", f"{name}.pbrt")) as f:
+        text = f.read()
+    film = '"integer xresolution" [64] "integer yresolution" [64]'
+    assert film in text
+    if res:
+        text = text.replace(film, f'"integer xresolution" [{res}] '
+                            f'"integer yresolution" [{res}]')
+    if spp:
+        old = [n for n in (4, 8) if f'"integer pixelsamples" [{n}]' in text]
+        text = text.replace(f'"integer pixelsamples" [{old[0]}]',
+                            f'"integer pixelsamples" [{spp}]')
+    return text
+
+
+def gi_render(label, text, device, reps, golden=None, limits=None):
+    """A chunked-driver render on the card, as bench_config6 times bench6:
+    load_scene_string -> render (the preprocess, the chunks; f16 readback)
+    in one wall. The first run is the main path's (the counts 0 before it,
+    read after it; its image written and read back; its peak device memory;
+    its preprocess seconds and stats), then the best of `reps` more. Fails
+    unless mt_best launched in both modes, the image is finite and, with
+    `golden`, inside `limits` (blurred rel, mean). Returns the line."""
+    import numpy as np
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.io.exr import read_exr, write_exr
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch.scene.parser import load_scene_string
+
+    def run(stats=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene, opts = load_scene_string(text)
+        opts = opts._replace(half_readback=True)
+        rgb, alpha = R.render(scene, opts, device=device, stats=stats)
+        return rgb, alpha, opts, time.perf_counter() - t0
+    counters = (bvh_cuda.launches, mt_cuda.launches)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    rgb, alpha, opts, first_s = run(stats)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for c in counters for k, v in c.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, opts.filename)
+        write_exr(out, rgb, alpha)
+        back, _ = read_exr(out)
+    walls = [run()[3] for _ in range(reps)]
+    if not (launches["mt_best"] > launches["mt_best_any"] > 0):
+        raise AssertionError(f"{label}: mt_best did not launch in both "
+                             f"modes: {launches}")
+    if rgb.shape != (opts.yres, opts.xres, 3) or back.shape != rgb.shape \
+            or not np.isfinite(rgb).all():
+        raise AssertionError(f"{label}: bad image {rgb.shape}")
+    spp = opts.sampler.pixelsamples
+    wall = min(walls) if walls else first_s
+    r = dict(phase="render", scene=label, integrator=opts.integrator,
+             shape=list(rgb.shape), spp=spp, launches=launches,
+             mt_best_nearest=launches["mt_best"] - launches["mt_best_any"],
+             mt_best_any=launches["mt_best_any"], finite=True,
+             first_wall_s=first_s, wall_s=wall, walls_timed=reps,
+             samples_per_s=opts.xres * opts.yres * spp / wall,
+             preprocess_s=stats.pop("preprocess_s"),
+             preprocess={k: v for k, v in stats.items()
+                         if not isinstance(v, (list, dict))},
+             peak_device_bytes=peak)
+    if golden:
+        rel, mean = band(rgb, read_exr(golden)[0])
+        r.update(band_rel=rel, band_rel_limit=limits[0], band_mean=mean,
+                 band_mean_limit=limits[1])
+    emit(**r)
+    if golden and not (rel < limits[0] and mean < limits[1]):
+        raise AssertionError(f"{label}: outside its band: {rel}, {mean}")
+    return r
+
+
+def gi_sets(device):
+    """mt_best's sets from the chunked paths, each captured from one render
+    at test_golden's settings (not a main-path run): config8's largest
+    shadow block of the virtual lights (any hit), config10's connection
+    batch (any hit), config7's largest final-gather ray set (nearest; the
+    maps and radiance photons built first, so the shooting is not in it)
+    and config9's largest estimate block (nearest). Returns {label:
+    (tris, rays, any_hit)}."""
+    from tpuprt_torch import render as R
+    from tpuprt_torch.ops import mt_cuda
+    from tpuprt_torch.scene.data import to_device
+    from tpuprt_torch.scene.parser import load_scene_string
+    sets = {}
+    for name, label, any_hit in (("config8", "config8/vl_shadow", True),
+                                 ("config10", "config10/connections", True),
+                                 ("config7", "config7/gather", False),
+                                 ("config9", "config9/estimate", False)):
+        scene, opts = load_scene_string(gi_text(name,
+                                                spp=GI_GOLDEN[name][0]))
+        scene_d = to_device(scene, device)
+        aux = R.preprocess(scene_d, opts) if name == "config7" else None
+        got = capture_rays(scene, opts, device, mt_cuda, "mt_best", 0,
+                           aux=aux)
+        sets[label] = (mt_cuda.pack_table(scene_d.triangles), got[any_hit],
+                       any_hit)
+    return sets
 
 
 # The C interfaces of the earlier bvh_tiles.cu and bvh_rows.cu (commit
@@ -1839,6 +1975,27 @@ def main(argv=None):
     golden_render("config2/bvh", CONFIG2, GOLDEN2, (BAND2_REL, BAND2_MEAN),
                   walks=(False, True), text=c2_bvh)
 
+    # 23. mt_best vs its plain version on the chunked paths' sets.
+    for label, (tris, rays, any_hit) in gi_sets(device).items():
+        res["mt_best"] += mt_parity(label, tris, rays, modes=(any_hit,))
+    # 24. Main path, the chunked driver: configs 7-10 at test_golden's
+    # settings inside their bands.
+    for name, (spp, rel_lim, mean_lim) in GI_GOLDEN.items():
+        r = gi_render(name, gi_text(name, spp=spp), device, 1,
+                      os.path.join(ROOT, "scenes", f"golden{name[6:]}.exr"),
+                      (rel_lim, mean_lim))
+        launches[name] = r["launches"]
+    # 25. The same four at bench6's film, each file's spp, as bench.py's
+    # bench_config6 times bench6: the first run and the best of 2.
+    for name in GI_GOLDEN:
+        label = f"{name}/{GI_RES}"
+        r = gi_render(label, gi_text(name, res=GI_RES), device, 2)
+        launches[label] = r["launches"]
+        if args.profile:
+            scene, opts = load_scene_string(gi_text(name, res=GI_RES))
+            profile_render(label, scene, opts._replace(half_readback=True),
+                           device)
+
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
                "bvh_instanced": "rocks", "mt_best": "config4_big/none"}
@@ -1892,7 +2049,18 @@ def main(argv=None):
                 bench6_sets={r["set"]: {k: r[k] for k in (
                     "rays", "mode", "ms", "host_ms", "plain_ms", "bound_ms",
                     "bound_by")} for r in rs if r["set"].startswith(
-                        "bench6/")})
+                        "bench6/")},
+                # The chunked driver's paths (configs 7-10 at test_golden's
+                # settings and at 256^2): launches by mode, their sets.
+                gi_launches={p: {"nearest": launches[p]["mt_best"] -
+                                 launches[p]["mt_best_any"],
+                                 "any": launches[p]["mt_best_any"]}
+                             for p in launches if p.startswith(
+                                 tuple(GI_GOLDEN))},
+                gi_sets={r["set"]: {k: r[k] for k in (
+                    "rays", "mode", "ms", "host_ms", "plain_ms", "bound_ms",
+                    "bound_by")} for r in rs if r["set"].startswith(
+                        tuple(GI_GOLDEN))})
         kernels.append(entry)
     emit(kernels=kernels,
          library_note="no PyTorch call computes a BVH walk or a nearest "

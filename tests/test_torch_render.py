@@ -113,7 +113,12 @@ def test_port_imports_no_jax():
             "tpuprt_torch.accel.kdtree, tpuprt_torch.accel.kdtree_build, "
             "tpuprt_torch.samplers.samplers, tpuprt_torch.lights.lights, "
             "tpuprt_torch.lights.emission, tpuprt_torch.accel.photon_grid, "
-            "tpuprt_torch.integrators.photonmap, tpuprt_torch.accel.bvh; "
+            "tpuprt_torch.integrators.photonmap, tpuprt_torch.accel.bvh, "
+            "tpuprt_torch.integrators.igi, "
+            "tpuprt_torch.integrators.irradiancecache, "
+            "tpuprt_torch.integrators.exphotonmap, "
+            "tpuprt_torch.integrators.bidirectional, "
+            "tpuprt_torch.core.spectrum; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

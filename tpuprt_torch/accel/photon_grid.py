@@ -1,6 +1,6 @@
 """Grid-hash photon storage and the fixed-radius lookup (port of
-tpuprt/accel/photon_grid.py: PhotonGrid, build_photon_grid and
-gather_photons).
+tpuprt/accel/photon_grid.py: PhotonGrid, build_photon_grid, gather_photons,
+and the generic point cache PointGrid, build_point_grid, gather_points).
 
 Photons are bucketed by a hash of their grid cell (cell size = the lookup
 radius) and sorted by bucket on the host, so a lookup reads, for each of
@@ -31,10 +31,10 @@ _NBR = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
                             indexing="ij"), -1).reshape(27, 3)
 # The bytes one query point's lookup step holds on the device: the 27
 # gathered 12-float rows, a few [27, 3] temporaries and the cells' starts,
-# counts and indices. lookup_block sizes the point blocks by it.
+# counts and indices: block_rows' default row.
 _STEP_BYTES = 27 * (12 + 6 * 3) * 4 + 27 * 3 * 8
-# The share of the device's free memory one lookup block may take, and the
-# block on the CPU.
+# The share of the device's free memory one block of work may take, and a
+# lookup's block on the CPU.
 _FREE_SHARE = 8
 _CPU_BLOCK = 1 << 14
 
@@ -108,37 +108,46 @@ def build_photon_grid(p: np.ndarray, wi: np.ndarray, alpha: np.ndarray,
         bucket_cap=int(min(max(counts.max(), 1), max_bucket_cap)), count=n)
 
 
-def lookup_block(device) -> int:
-    """Query points per lookup block: on the card, what a share of its free
-    memory holds (one step's rows and temporaries); on the CPU a fixed
-    block."""
+def block_rows(device, row_bytes: int = _STEP_BYTES,
+               cpu_rows: int = _CPU_BLOCK) -> int:
+    """Rows a block of work takes (by default query points of a lookup,
+    one step's rows and temporaries each): on the card, what a share of
+    its free memory holds at `row_bytes` a row; on the CPU `cpu_rows`. A
+    block's size changes no result."""
     device = torch.device(device)
     if device.type != "cuda":
-        return _CPU_BLOCK
+        return cpu_rows
     free, _ = torch.cuda.mem_get_info(device)
-    return max(1024, free // _FREE_SHARE // _STEP_BYTES)
+    return max(1024, free // _FREE_SHARE // row_bytes)
 
 
-def gather_photons(grid: PhotonGrid, q, accum, init):
-    """Scan the photons within `radius` of each query point q f32[B, 3]
-    (photon_grid.py:130-178): for slot j < bucket_cap, one [B, 27] step,
-    accum(carry, wi f32[B,27,3], alpha f32[B,27,3], w bool[B,27]) with w
-    True for the photons in range. Returns the final carry. All 27 cells
-    go in one step (tpuprt blocks them to bound the TPU's gather width;
-    the caller blocks the points instead)."""
-    if grid.count == 0 or grid.bucket_cap == 0:
-        return init
-    r2 = float(np.float32(grid.radius * grid.radius))
-    rad = torch.tensor(grid.radius, dtype=torch.float32, device=q.device)
+def _cells(start, n_buckets: int, radius: float, q):
+    """The first index and count i64[B, 27] of the bucket of each of the 27
+    cells around each query point q f32[B, 3]. A cell is floor(q / radius)
+    by a true f32 division: the radius is a tensor on q's device."""
+    rad = torch.tensor(radius, dtype=torch.float32, device=q.device)
     # A missed lane's far-off point keeps its hash products inside int64
     # (its result is masked); a real point is far inside the clamp.
     base = torch.floor(torch.clamp(torch.nan_to_num(q / rad), -2.0 ** 30,
                                    2.0 ** 30)).to(torch.int64)
     cells = base[:, None, :] + torch.from_numpy(_NBR).to(q.device)
-    b = _cell_hash(cells[..., 0], cells[..., 1], cells[..., 2],
-                   grid.n_buckets)                            # [B, 27]
-    s_all = grid.start[b].to(torch.int64)
-    cnt_all = grid.start[b + 1].to(torch.int64) - s_all
+    b = _cell_hash(cells[..., 0], cells[..., 1], cells[..., 2], n_buckets)
+    s_all = start[b].to(torch.int64)
+    return s_all, start[b + 1].to(torch.int64) - s_all
+
+
+def gather_photons(grid: PhotonGrid, q, accum, init, with_d2=False):
+    """Scan the photons within `radius` of each query point q f32[B, 3]
+    (photon_grid.py:130-178): for slot j < bucket_cap, one [B, 27] step,
+    accum(carry, wi f32[B,27,3], alpha f32[B,27,3], w bool[B,27]) with w
+    True for the photons in range, and with_d2 their squared distances
+    f32[B,27] as a fifth argument (the kernel estimators'). Returns the
+    final carry. All 27 cells go in one step (tpuprt blocks them to bound
+    the TPU's gather width; the caller blocks the points instead)."""
+    if grid.count == 0 or grid.bucket_cap == 0:
+        return init
+    r2 = float(np.float32(grid.radius * grid.radius))
+    s_all, cnt_all = _cells(grid.start, grid.n_buckets, grid.radius, q)
     # The photons' p, wi and alpha as nine contiguous columns: on the card
     # a 1-D take per column makes the lookup about 3x faster than a
     # gather of whole 12-float rows (chip_smoke.py --profile, phase
@@ -151,6 +160,67 @@ def gather_photons(grid: PhotonGrid, q, accum, init):
         dx, dy, dz = (g[k] - q[:, None, k] for k in range(3))
         d2 = dx * dx + dy * dy + dz * dz
         w = (cnt_all > j) & (d2 < r2)
-        carry = accum(carry, torch.stack(g[3:6], -1),
-                      torch.stack(g[6:9], -1), w)
+        args = (torch.stack(g[3:6], -1), torch.stack(g[6:9], -1), w)
+        carry = accum(carry, *args, d2) if with_d2 else accum(carry, *args)
+    return carry
+
+
+@dataclass
+class PointGrid:
+    """Generic hashed point cache (photon_grid.py:181-195; the reference's
+    Octree, core/octree.h:42-147): points `p` f32[N, 3] and `payload`
+    columns, each f32[N, ...], sorted by the bucket of their cell of size
+    `radius`; `start` i32[M+1] the bucket offsets. The irradiance cache
+    and exphotonmap's radiance photons keep theirs in one."""
+    p: torch.Tensor = None
+    payload: tuple = ()
+    start: torch.Tensor = None
+    radius: float = 0.1
+    n_buckets: int = 1
+    bucket_cap: int = 0
+    count: int = 0
+
+
+def build_point_grid(p: np.ndarray, payload, radius: float,
+                     max_bucket_cap: int = 64) -> PointGrid:
+    """Host build (photon_grid.py:198-219): hash to 2N or more buckets,
+    stable-sort by bucket, record the starts; no thinning, a lookup reads at
+    most `max_bucket_cap` points a bucket. Returns CPU tensors."""
+    n = p.shape[0]
+    if n == 0:
+        return PointGrid(p=torch.zeros((1, 3)),
+                         payload=tuple(torch.from_numpy(np.asarray(x))
+                                       for x in payload),
+                         start=torch.zeros((2,), dtype=torch.int32),
+                         radius=float(radius))
+    m = 1
+    while m < 2 * n:
+        m *= 2
+    cells = np.floor(p / np.float32(radius)).astype(np.int64)
+    h = _cell_hash(cells[:, 0], cells[:, 1], cells[:, 2], m)
+    order = np.argsort(h, kind="stable")
+    start = np.searchsorted(h[order], np.arange(m + 1))
+    return PointGrid(
+        p=torch.from_numpy(np.ascontiguousarray(p[order], np.float32)),
+        payload=tuple(torch.from_numpy(np.ascontiguousarray(
+            np.asarray(x)[order])) for x in payload),
+        start=torch.from_numpy(start.astype(np.int32)),
+        radius=float(radius), n_buckets=m,
+        bucket_cap=int(min(max(np.diff(start).max(), 1), max_bucket_cap)),
+        count=n)
+
+
+def gather_points(grid: PointGrid, q, accum, init):
+    """gather_points (photon_grid.py:222-251) with all 27 cells a step: for
+    slot j < bucket_cap, accum(carry, p f32[B,27,3], payload tuple of
+    [B,27,...] gathers, in_bucket bool[B,27]); accum applies its own range
+    and validity tests. Returns the final carry."""
+    if grid.count == 0 or grid.bucket_cap == 0:
+        return init
+    s_all, cnt_all = _cells(grid.start, grid.n_buckets, grid.radius, q)
+    carry = init
+    for j in range(grid.bucket_cap):
+        idx = torch.clamp(s_all + j, max=grid.count - 1)
+        carry = accum(carry, grid.p[idx], tuple(x[idx] for x in grid.payload),
+                      cnt_all > j)
     return carry

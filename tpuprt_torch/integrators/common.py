@@ -12,11 +12,13 @@ without one, each segment is its own launch in its own mode.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..accel import intersect as isect
 from ..bsdf import bsdf as B
-from ..core import mc, vecmath as vm
+from ..core import mc, rng, vecmath as vm
 from ..lights import lights as lt
 from ..materials import factory as _factory
 from ..scene.data import (AREA_GEOM_QUADRIC, AREA_GEOM_TRIS, LIGHT_AREA,
@@ -24,6 +26,15 @@ from ..scene.data import (AREA_GEOM_QUADRIC, AREA_GEOM_TRIS, LIGHT_AREA,
 from ..textures import graph as _tex
 
 _EPS = vm.RAY_EPSILON
+
+
+def map_bsdf(bsdf: B.BsdfBatch, fn) -> B.BsdfBatch:
+    """fn applied to every tensor of a BSDF batch and its lobes."""
+    def tensors(obj):
+        return dataclasses.replace(obj, **{
+            f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+    return dataclasses.replace(tensors(bsdf), lobes=tensors(bsdf.lobes))
 
 
 def make_bsdf_at(scene: SceneData, dg):
@@ -272,3 +283,81 @@ def uniform_sample_all_lights(scene: SceneData, p, n, wo, bsdf, sample_fn,
         return torch.zeros(p.shape[:-1] + (3,), dtype=torch.float32,
                            device=p.device)
     return estimate_direct_multi(scene, specs, p, n, wo, bsdf, active)
+
+
+def live_window(live):
+    """(mint, maxt) of rays that start at a hit point: RAY_EPSILON to
+    infinity on `live` lanes, an empty window (1 > -1) elsewhere, which
+    the traversal finishes at once."""
+    return torch.where(live, _EPS, 1.0), torch.where(live, 1e30, -1.0)
+
+
+def scan_li(scene: SceneData, o, d, mint, maxt, rx, ry, ph, s_idx,
+            n_depths: int, max_depth: int, shade):
+    """Li of the integrators that tpuprt writes as a scan over depths with a
+    specular-only continuation (igi.py:160-252, irradiancecache.py:
+    246-316, exphotonmap.py:247-383), on a chunk of camera rays: at each of
+    `n_depths` depths the live lanes' nearest hit, the escaped infinite
+    lights' radiance, the emitted radiance, the terms of
+    shade(depth, idx, ph, s_idx, dg, bsdf, wo, throughput) (added in
+    order; idx the live lanes' chunk indices, the other arguments theirs),
+    and the continuation by rng.uniform(ph, s_idx, depth, 0x5A, 1..3)
+    while depth < max_depth. The live lanes are compacted after the hit
+    and after the continuation, so a dead lane costs nothing. rx, ry: the
+    +x/+y differential rays (o, d), applied at the first hit. Returns (L,
+    alpha, t_first)."""
+    n, dev = o.shape[0], o.device
+    L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alpha = torch.zeros(n, dtype=torch.float32, device=dev)
+    t_first = maxt.clone()
+    idx = torch.arange(n, device=dev)
+    ro, rd, tp = o, d, torch.ones_like(o)
+    for depth in range(n_depths):
+        first = depth == 0
+        t, pid, hit = isect.intersect_ids(
+            scene, ro, rd, *((mint, maxt) if first else live_window(
+                torch.ones(ro.shape[0], dtype=torch.bool, device=dev))))
+        if first:
+            t_first = torch.where(hit, t, maxt)
+        if scene.lights.infinite_meta:
+            Lesc = lt.le_escaped(scene, rd)
+            L.index_add_(0, idx, torch.where((~hit)[..., None], tp * Lesc,
+                                             0.0))
+            if first:
+                alpha = torch.where(~hit & torch.any(Lesc > 0, -1), 1.0,
+                                    alpha)
+        keep = torch.nonzero(hit).squeeze(1)
+        if first:
+            alpha[keep] = 1.0
+        idx, ro, rd, tp, t, pid = (x[keep] for x in (idx, ro, rd, tp, t,
+                                                      pid))
+        if idx.numel() == 0:
+            break
+        dg = isect.hit_geometry(scene, pid, ro, rd, t)
+        if first and rx is not None:
+            dg = isect.compute_differentials(
+                dg, rx[0][idx], rx[1][idx], ry[0][idx], ry[1][idx],
+                torch.ones_like(t, dtype=torch.bool))
+        wo = -rd
+        L.index_add_(0, idx, tp * lt.area_emission(scene, dg["area_light"],
+                                                   dg["nn"], wo))
+        bsdf = make_bsdf_at(scene, dg)
+        ph_l, s_l = ph[idx], s_idx[idx]
+        for term in shade(depth, idx, ph_l, s_l, dg, bsdf, wo, tp):
+            L.index_add_(0, idx, term)
+        if depth >= max_depth or depth + 1 == n_depths:
+            break
+        u = [rng.uniform(ph_l, s_l, depth, 0x5A, k) for k in (1, 2, 3)]
+        bs = B.sample_f(bsdf, wo, *u, B.SPECULAR | B.REFLECTION |
+                        B.TRANSMISSION)
+        cont = bs["valid"] & (bs["pdf"] > 0.0) & \
+            ~torch.all(bs["f"] == 0.0, dim=-1)
+        scale = bs["f"] * (vm.absdot(bs["wi"], bsdf.nn) /
+                           torch.clamp(bs["pdf"], min=1e-20))[..., None]
+        keep = torch.nonzero(cont).squeeze(1)
+        idx, ro, rd, tp = idx[keep], dg["p"][keep], bs["wi"][keep], \
+            (tp * scale)[keep]
+        if idx.numel() == 0:
+            break
+    return L, alpha, t_first
+

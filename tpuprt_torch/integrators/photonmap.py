@@ -38,7 +38,7 @@ import torch
 
 from ..accel import intersect as isect
 from ..accel.photon_grid import (PhotonGrid, build_photon_grid,
-                                 gather_photons, lookup_block)
+                                 gather_photons, block_rows)
 from ..bsdf import bsdf as B
 from ..core import rng, vecmath as vm
 from ..lights import emission, lights as lt
@@ -81,11 +81,15 @@ class PhotonMaps:
 # ---------------------------------------------------------------------------
 
 def shoot_batch(scene: SceneData, base: int, n: int, depth_bound: int,
-                seed: int):
+                seed: int, radiance: bool = False):
     """Trace photon paths base .. base + n - 1 on the scene's device.
     Returns per-depth stacked tensors [D, n]: pos, wi (toward where the
     photon came from), alpha, cls (0 direct, 1 caustic, 2 indirect) and
-    valid (a deposit)."""
+    valid (a deposit); with `radiance` also exphotonmap's radiance-photon
+    candidates (photonmap.py:121-127, exphotonmap.cpp:410-421): the hit's
+    normal turned against the photon's direction, rho_r and rho_t (the
+    reflected and transmitted rho), and the pick, probability 1/8 by the
+    path's stream rng.uniform(ph, depth, 0xAD)."""
     dev = scene.lights.kind.device
     idx = torch.arange(n, dtype=torch.int64, device=dev) + (base + 1)
     u = [rng.radical_inverse(idx, b) for b in (2, 3, 5, 7, 11)]
@@ -110,7 +114,14 @@ def shoot_batch(scene: SceneData, base: int, n: int, depth_bound: int,
         has_nonspec = B.num_components(bsdf, B.ALL) > nspec
         cls = torch.full_like(pid, 0) if depth == 0 else \
             torch.where(spec_path, 1, 2).to(pid.dtype)
-        outs.append((dg["p"], -d, alpha, cls, alive & has_nonspec))
+        out = (dg["p"], -d, alpha, cls, alive & has_nonspec)
+        if radiance:
+            nn_f = torch.where(vm.dot(dg["nn"], d)[..., None] > 0.0,
+                               -dg["nn"], dg["nn"])
+            out = out + (nn_f, B.rho_approx(bsdf, B.ALL_REFLECTION),
+                         B.rho_approx(bsdf, B.ALL_TRANSMISSION),
+                         rng.uniform(ph, depth, 0xAD) < 0.125)
+        outs.append(out)
         # Continuation (photonmap.cpp:262-292): radical inverses at the
         # first bounce, hash streams after.
         if depth == 0:
@@ -134,26 +145,31 @@ def shoot_batch(scene: SceneData, base: int, n: int, depth_bound: int,
 
 
 def _shoot_packed(scene: SceneData, base: int, n: int, depth_bound: int,
-                  seed: int):
+                  seed: int, radiance: bool = False):
     """shoot_batch, then the valid deposits compacted on the device,
     path-major (photonmap.py:149-175: a stable sort of the invalid last;
     here the valid rows' ascending indices), so the host copies only
     those rows, in global path order. Returns numpy (pos, wi, alpha, cls,
-    path id int64)."""
-    pos, wi, al, cls, valid = shoot_batch(scene, base, n, depth_bound, seed)
+    path id int64), with `radiance` then the picked valid deposits' (pos,
+    normal, rho_r, rho_t), compacted the same way."""
+    outs = shoot_batch(scene, base, n, depth_bound, seed, radiance)
+    pos, wi, al, cls, valid = outs[:5]
 
     def pm(x):
         return x.transpose(0, 1).reshape((n * depth_bound,) + x.shape[2:])
 
     keep = torch.nonzero(pm(valid)).squeeze(1)
     pid = keep // depth_bound + base
-    return tuple(x.cpu().numpy() for x in (pm(pos)[keep], pm(wi)[keep],
-                                           pm(al)[keep], pm(cls)[keep],
-                                           pid))
+    got = (pm(pos)[keep], pm(wi)[keep], pm(al)[keep], pm(cls)[keep], pid)
+    if radiance:
+        nn_f, rho_r, rho_t, pick = outs[5:]
+        rkeep = torch.nonzero(pm(valid & pick)).squeeze(1)
+        got += tuple(pm(x)[rkeep] for x in (pos, nn_f, rho_r, rho_t))
+    return tuple(x.cpu().numpy() for x in got)
 
 
 def build_maps(scene: SceneData, prm: PhotonParams, seed: int = 0,
-               stats: dict = None) -> PhotonMaps:
+               stats: dict = None, collect_radiance: bool = False):
     """The reference's Preprocess loop (photonmap.cpp:163-296, tpuprt's
     photonmap.py:178-301): batches of prm.batch paths until every map
     reaches its target, or prm.max_shot paths, or, from 8 batches on,
@@ -166,13 +182,19 @@ def build_maps(scene: SceneData, prm: PhotonParams, seed: int = 0,
     stats, when given, receives per batch the seconds of the device's
     shooting and copy (`shoot_s`) and of the host's collection (`host_s`),
     and per map its photons, those the grid stores (photon_grid's thinning),
-    n_paths, the batch that filled it, its buckets and bucket cap."""
+    n_paths, the batch that filled it, its buckets and bucket cap.
+
+    With `collect_radiance` it returns (maps, rad): rad holds exphotonmap's
+    radiance photons as numpy p, n, rho_r, rho_t f32[R, 3], every picked
+    deposit of every batch shot, in path order (photonmap.py:239-244,
+    301-305)."""
     dev = scene.lights.kind.device
     targets = {"direct": prm.direct, "caustic": prm.caustic,
                "indirect": prm.indirect}
     coll = {k: [] for k in MAPS}
     have = {k: 0 for k in MAPS}
     filled = {k: None for k in MAPS}
+    rad = []
     shoot_s, host_s = [], []
     shot = 0
     if scene.lights.count and any(targets.values()):
@@ -180,9 +202,11 @@ def build_maps(scene: SceneData, prm: PhotonParams, seed: int = 0,
     while scene.lights.count and any(targets.values()) and \
             shot < prm.max_shot:
         t0 = time.perf_counter()
-        P, W, A, C, I = _shoot_packed(scene, shot, prm.batch,
-                                      prm.shoot_depth, seed)
+        P, W, A, C, I, *R = _shoot_packed(scene, shot, prm.batch,
+                                          prm.shoot_depth, seed,
+                                          collect_radiance)
         t1 = time.perf_counter()
+        rad.append(R)
         shot += prm.batch
         for ci, k in enumerate(MAPS):
             if have[k] < targets[k]:
@@ -225,7 +249,12 @@ def build_maps(scene: SceneData, prm: PhotonParams, seed: int = 0,
     if stats is not None:
         stats.update(batches=len(shoot_s), paths_shot=shot, shoot_s=shoot_s,
                      host_s=host_s)
-    return PhotonMaps(**grids)
+    maps = PhotonMaps(**grids)
+    if not collect_radiance:
+        return maps
+    cols = [np.concatenate(x) if x else np.zeros((0, 3), np.float32)
+            for x in zip(*rad)] or [np.zeros((0, 3), np.float32)] * 4
+    return maps, dict(zip(("p", "n", "rho_r", "rho_t"), cols))
 
 
 def _to(grid: PhotonGrid, device) -> PhotonGrid:
@@ -238,33 +267,24 @@ def _to(grid: PhotonGrid, device) -> PhotonGrid:
 # Density estimation (LPhoton)
 # ---------------------------------------------------------------------------
 
-def _map_bsdf(bsdf: B.BsdfBatch, fn) -> B.BsdfBatch:
-    """fn applied to every tensor of a BSDF batch and its lobes."""
-    def tensors(obj):
-        return dataclasses.replace(obj, **{
-            f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)
-            if isinstance(getattr(obj, f.name), torch.Tensor)})
-    return dataclasses.replace(tensors(bsdf), lobes=tensors(bsdf.lobes))
-
-
 def lphoton(grid: PhotonGrid, bsdf: B.BsdfBatch, wo, p, active,
             may_glossy: bool = True):
     """The fixed-radius photon radiance estimate at points p f32[N, 3]
     (photonmap.py:310-356), 0 on lanes not `active`; the lookup runs in
-    blocks of points (photon_grid.lookup_block)."""
+    blocks of points (photon_grid.block_rows)."""
     zero3 = torch.zeros(p.shape[:-1] + (3,), dtype=torch.float32,
                         device=p.device)
     if grid.count == 0:
         return zero3
     nf = torch.where(vm.dot(wo, bsdf.nn)[..., None] < 0.0, -bsdf.nn,
                      bsdf.nn)
-    step = lookup_block(p.device) // (8 if may_glossy else 1)
+    step = block_rows(p.device) // (8 if may_glossy else 1)
     sums = []
     for a in range(0, p.shape[0], step):
         sl = slice(a, a + step)
         nf_b = nf[sl][:, None, :]
         if may_glossy:
-            bsdf_b = _map_bsdf(bsdf, lambda x: x[sl][:, None])
+            bsdf_b = common.map_bsdf(bsdf, lambda x: x[sl][:, None])
             wo_b = wo[sl][:, None, :]
 
         def accum(carry, wi_b, alpha_b, w):
@@ -344,7 +364,7 @@ def photon_radiance(scene: SceneData, maps: PhotonMaps, prm: PhotonParams,
     def rep(x):
         return x.repeat_interleave(Gb, 0)
 
-    bsdfG = _map_bsdf(bsdf, rep)
+    bsdfG = common.map_bsdf(bsdf, rep)
     phG, sG, dG = rep(ph), rep(s_idx), rep(depth)
     woG, pG, nsG, aliveG = rep(wo), rep(p), rep(ns), rep(alive)
     g_base = torch.arange(Gb, dtype=torch.int32,

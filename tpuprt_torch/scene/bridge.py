@@ -10,7 +10,11 @@ Anything else raises NotImplementedError. The BVH's rows are padded to 128 colum
 stores them, and get the port's child-id table and depth
 (accel/bvh_build.child_table); an instance table gets the port's top-level
 BVH over its entries (accel/instances.build_top). tpuprt carries neither.
-photon_maps_from_numpy does the same for a tpuprt PhotonMaps.
+photon_maps_from_numpy does the same for a tpuprt PhotonMaps, and
+virtual_lights_from_numpy, point_grid_from_numpy and
+exphoton_aux_from_numpy for the preprocess state of igi, the irradiance
+cache and exphotonmap, so each Li can be held from the state tpuprt's
+reads.
 """
 from __future__ import annotations
 
@@ -107,3 +111,37 @@ def photon_maps_from_numpy(tables: dict, device):
             bucket_cap=int(d["bucket_cap"]), count=int(d["count"]))
     return PhotonMaps(**{k: grid(tables[k]) for k in
                          ("caustic", "direct", "indirect")})
+
+
+def virtual_lights_from_numpy(tables: dict, device):
+    """Port VirtualLights from the numpy tables of a tpuprt VirtualLights."""
+    from ..integrators.igi import VirtualLights
+    return VirtualLights(
+        **{k: torch.tensor(tables[k], device=device)
+           for k in ("p", "n", "Le", "valid")},
+        n_paths=torch.tensor(tables["n_paths"], dtype=torch.float32,
+                             device=device),
+        nsets=int(tables["nsets"]), max_vl=int(tables["max_vl"]))
+
+
+def point_grid_from_numpy(tables: dict, device):
+    """Port PointGrid from the numpy tables of a tpuprt PointGrid."""
+    from ..accel.photon_grid import PointGrid
+    return PointGrid(
+        p=torch.tensor(tables["p"], device=device),
+        payload=tuple(torch.tensor(x, device=device)
+                      for x in tables["payload"]),
+        start=torch.tensor(tables["start"], device=device),
+        radius=float(tables["radius"]), n_buckets=int(tables["n_buckets"]),
+        bucket_cap=int(tables["bucket_cap"]), count=int(tables["count"]))
+
+
+def exphoton_aux_from_numpy(tables: dict, device):
+    """Port ExPhotonAux from the numpy tables of a tpuprt ExPhotonAux: its
+    maps, its radiance photons' grid and cos(gatherangle)."""
+    from ..integrators.exphotonmap import ExPhotonAux
+    return ExPhotonAux(
+        maps=photon_maps_from_numpy(tables["maps"], device),
+        radiance=point_grid_from_numpy(tables["radiance"], device),
+        cos_gather=torch.tensor(tables["cos_gather"], dtype=torch.float32,
+                                device=device))

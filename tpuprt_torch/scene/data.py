@@ -267,9 +267,12 @@ class SceneData:
 
 
 def to_device(obj, device):
-    """Copy every tensor of a (nested) table dataclass to `device`."""
+    """Copy every tensor of a (nested) table dataclass, or of a plain tuple
+    of tensors, to `device`."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if type(obj) is tuple:
+        return tuple(to_device(x, device) for x in obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: to_device(getattr(obj, f.name), device)
