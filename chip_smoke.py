@@ -118,6 +118,33 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    bench_config6 times bench6 (load -> preprocess -> render in one wall,
    the first run the main path's, then the best of 2): samples/s, the
    peak device memory, the image finite.
+26. render -- every light and texture (light_phases): config4_big lit by
+   an infinitesample sky (2048x1024 map), a spot, a projection (512^2
+   slide) and a goniometric light (256x128 map) and a 512-triangle
+   emissive patch, its terrain's Kd a mix of a 2048^2 EWA imagemap and a
+   colour by an fbm, bump-mapped by a scale of wrinkled (lit_text), its
+   maps made from MAP_SEED and written beside the scene text, which names
+   them relative to itself: load_scene -> render -> write_exr at 512x512
+   x 4 spp through the tile walk, launched, finite; the wall best of 2,
+   the peak device memory. The tile walk vs its plain version on its
+   camera rays and on the render's largest call (a pass's fused shadow
+   and BSDF-strategy rays, all nearest), bit for bit. The same
+   scene at 32x32 x 1 spp rendered on the CPU and on the card (the
+   shading layer on two devices: the light kinds' maps, the EWA gathers,
+   fbm, wrinkled, bump), 99.5% of pixels within atol = rtol = 1e-4 and
+   alpha equal. Then the sky alone on the checkerboard under "infinite"
+   and under "infinitesample" at 128x128 x 64 spp, held to each other
+   inside twice tpuprt's band between the same two renders.
+27. render -- bench3 with its disk light as a 48-triangle fan of the same
+   radius and L and Accelerator "none" (meshlight_text; 60 prims, every
+   ray through mt_best), 256x256 x 32 spp in path mode: both modes
+   launched, held to phase 13's bench3 inside twice tpuprt's band. Then
+   mt_best vs its plain version, bit for bit, on its camera rays and on
+   one pass's shadow (any hit) and BSDF-strategy (nearest) batches.
+28. photons, render -- bench6 with the same fan: its photon maps built on
+   the card (counts beside phase 19's), then load -> maps -> render at
+   256x256 x 4 spp as bench_config6 times bench6: photon emission from
+   triangles through mt_best, the image finite, the wall.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -143,8 +170,8 @@ shooting included) with the device time of the photon lookups (lphoton),
 of photon_radiance and of build_maps (ranges_ms), and times the lookup of
 a final-gather block's hit points with whole-row gathers and with the
 shipped column takes (phase "lookup": rows, cols, cols, rows), and
-profiles configs 7-10 at 256x256 (device busy and idle shares, the top
-device ops).
+profiles configs 7-10 at 256x256 and config4_big/lit (device busy and
+idle shares, the top device ops).
 
 ``--old DIR`` runs no smoke phase: it times the earlier ``bvh_tiles.cu``
 and ``bvh_rows.cu`` of commit 2a258fc (the skip-link walks), copied into
@@ -257,6 +284,181 @@ REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:860",
             "mt_best": "tpuprt/ops/mt_pallas.py:111"}
 ALSO_REPLACES = {"bvh_tiles": "tpuprt/ops/bvh_pallas.py:1010",
                  "bvh_rows": "tpuprt/ops/bvh_pallas.py:558"}
+
+
+# Phases 26-28, the lights and textures. The image maps are made from
+# MAP_SEED with numpy and written with the port's write_exr beside the
+# scene text, which names them relative to itself (write_lit_maps).
+MAP_SEED = 11
+LIT_SIDE = 2048            # the terrain's imagemap, 2048 x 2048
+SKY_HW = (1024, 2048)      # the environment map: rows theta, columns phi
+SLIDE_SIDE = 512           # the projection light's slide
+GONIO_HW = (128, 256)      # the goniometric light's map
+PATCH_QUADS = 16           # the emissive patch: 16 x 16 quads, 512 triangles
+FAN_TRIS = 48              # bench3's disk light as a fan of 48 triangles
+ENV_RES, ENV_SPP = 128, 64
+# config4_big/lit rendered on the CPU and on the card (phase 26): the film,
+# and the share of pixels within atol = rtol = 1e-4 of each other, as
+# tests/test_torch_lights.py holds the port to tpuprt per sample.
+DEV_RES, DEV_SHARE, DEV_TOL = 32, 0.995, 1e-4
+# The bands between renders that estimate the same image, in
+# test_golden._compare's measures: twice what tpuprt gives between the
+# same two renders on the CPU (tools/light_bands.py):
+# - config4_big lit by the environment map alone, "infinite" against
+#   "infinitesample", 128x128 x 64 spp: blurred rel 0.008308, mean
+#   0.000547;
+# - bench3/meshlight against bench3, 256x256 x 32 spp: blurred rel
+#   0.012414, mean 0.002823 (the fan's area is 0.29% below the disk's).
+ENV_BAND_REL, ENV_BAND_MEAN = 2 * 0.008308, 2 * 0.000547
+MESH3_BAND_REL, MESH3_BAND_MEAN = 2 * 0.012414, 2 * 0.002823
+
+
+def write_lit_maps(d, small=1):
+    """The maps of phases 26-28 as half EXRs in directory `d`, each side
+    divided by `small`: tex.exr, the terrain's texture (64 x 64 cells of
+    random colours, each texel dimmed by up to 15%); sky.exr, the
+    environment (rows theta from the light's +z, columns phi): a blue sky
+    brightening toward the zenith, a dark ground below the horizon and a
+    sun of angular radius 0.03 at theta 0.3 pi, phi 1.2 pi; slide.exr,
+    8 x 8 blocks of random colours; gonio.exr, a smooth pattern over the
+    sphere."""
+    import numpy as np
+    from tpuprt_torch.io.exr import write_exr
+    rng = np.random.default_rng(MAP_SEED)
+    f32 = np.float32
+    n = LIT_SIDE // small
+    cells = rng.uniform(0.1, 0.9, (64, 64, 3)).astype(f32)
+    tex = np.repeat(np.repeat(cells, n // 64, 0), n // 64, 1)
+    tex = tex * (0.85 + 0.15 * rng.uniform(size=(n, n, 1))).astype(f32)
+    h, w = SKY_HW[0] // small, SKY_HW[1] // small
+    theta = ((np.arange(h) + 0.5) * np.pi / h)[:, None]
+    phi = ((np.arange(w) + 0.5) * 2 * np.pi / w)[None, :]
+    up = np.cos(theta)
+    sky = np.where(up[..., None] > 0, np.array([0.35, 0.55, 1.0]) *
+                   (0.5 + 0.5 * up[..., None]), 0.12) * np.ones((1, w, 1))
+    t0, p0 = 0.3 * np.pi, 1.2 * np.pi
+    cosang = np.cos(theta) * np.cos(t0) + np.sin(theta) * np.sin(t0) * \
+        np.cos(phi - p0)
+    sky[cosang > np.cos(0.03)] = 50.0
+    m = SLIDE_SIDE // small
+    slide = np.repeat(np.repeat(rng.uniform(0, 1, (8, 8, 3)), m // 8, 0),
+                      m // 8, 1)
+    gh, gw = GONIO_HW[0] // small, GONIO_HW[1] // small
+    gt = ((np.arange(gh) + 0.5) * np.pi / gh)[:, None, None]
+    gp = ((np.arange(gw) + 0.5) * 2 * np.pi / gw)[None, :, None]
+    gonio = 0.6 + 0.4 * np.cos(3 * gt + np.array([0.0, 1.0, 2.0])) * \
+        np.cos(2 * gp)
+    os.makedirs(d, exist_ok=True)
+    for name, img in (("tex.exr", tex), ("sky.exr", sky),
+                      ("slide.exr", slide), ("gonio.exr", gonio)):
+        write_exr(os.path.join(d, name), np.asarray(img, f32))
+    return d
+
+
+def _fmt(a):
+    return " ".join(f"{x:.6g}" for x in a)
+
+
+def patch_text(n=PATCH_QUADS, x=(-0.9, -0.5), z=(0.3, 0.7), y=0.9):
+    """An n x n grid of quads in the plane y, its normal down (-y), as a
+    trianglemesh's parameters."""
+    import numpy as np
+    xs, zs = np.meshgrid(np.linspace(*x, n + 1), np.linspace(*z, n + 1))
+    P = np.stack([xs, np.full_like(xs, y), zs], -1).reshape(-1)
+    idx = []
+    for i in range(n):
+        for j in range(n):
+            a = i * (n + 1) + j
+            idx += [a, a + 1, a + n + 1, a + 1, a + n + 2, a + n + 1]
+    return f'"integer indices" [{_fmt(idx)}] "point P" [{_fmt(P)}]'
+
+
+def fan_text(n=FAN_TRIS, r=0.3):
+    """A disk of radius r in the plane z = 0 as a fan of n triangles, its
+    normal +z as a disk's: trianglemesh parameters."""
+    import math
+    P = [0.0, 0.0, 0.0]
+    for i in range(n):
+        a = 2 * math.pi * i / n
+        P += [r * math.cos(a), r * math.sin(a), 0.0]
+    idx = []
+    for i in range(n):
+        idx += [0, 1 + i, 1 + (i + 1) % n]
+    return f'"integer indices" [{_fmt(idx)}] "point P" [{_fmt(P)}]'
+
+
+LIT_LIGHTS = '''AttributeBegin
+Rotate -90 1 0 0
+LightSource "infinitesample" "string mapname" "sky.exr" "color L" [0.6 0.6 0.6]
+AttributeEnd
+LightSource "spot" "point from" [0.8 1.5 -0.6] "point to" [0.3 0 0.2]
+    "float coneangle" [18] "float conedeltaangle" [5] "color I" [4 3.6 3]
+AttributeBegin
+Translate -0.6 1.4 -0.4
+Rotate 80 1 0 0
+LightSource "projection" "string mapname" "slide.exr" "float fov" [30]
+    "color I" [3 3 3]
+AttributeEnd
+AttributeBegin
+Translate 0.3 0.8 0.5
+Rotate 90 1 0 0
+LightSource "goniometric" "string mapname" "gonio.exr" "color I" [1.2 1.2 1.2]
+AttributeEnd
+AttributeBegin
+AreaLightSource "area" "color L" [3 2.8 2.6]
+Shape "trianglemesh" {patch}
+AttributeEnd
+Texture "photo" "color" "imagemap" "string filename" "tex.exr"
+    "float uscale" [4] "float vscale" [4]
+TransformBegin
+Scale 0.1 0.1 0.1
+Texture "grain" "float" "fbm" "integer octaves" [6] "float roughness" [0.5]
+Texture "wr" "float" "wrinkled" "integer octaves" [6] "float roughness" [0.5]
+TransformEnd
+Texture "kd" "color" "mix" "texture tex1" "photo" "color tex2" [0.45 0.4 0.32]
+    "texture amount" "grain"
+Texture "bumpamp" "float" "constant" "float value" [0.004]
+Texture "bump" "float" "scale" "texture tex1" "wr" "texture tex2" "bumpamp"
+Material "matte" "texture Kd" "kd" "texture bumpmap" "bump"
+'''
+
+
+def lit_text(base_text, kind="lit", res=None, spp=None):
+    """config4_big's terrain and camera under other lights. "lit": the
+    slide's main path (LIT_LIGHTS: an infinitesample sky, a spot, a
+    projection, a goniometric light and a 512-triangle emissive patch;
+    the terrain's Kd a mix of a 2048^2 EWA imagemap and a colour by an
+    fbm, its bump a scale of wrinkled), by default at the file's 512x512
+    x 4 spp. "infinitesample" or "infinite": the sky alone on the file's
+    checkerboard, by default at ENV_RES^2 x ENV_SPP."""
+    head = base_text[:base_text.index("WorldBegin")]
+    mesh = base_text[base_text.index('Shape "trianglemesh"'):
+                     base_text.rindex("WorldEnd")]
+    if kind != "lit":
+        res, spp = res or ENV_RES, spp or ENV_SPP
+    if res:
+        head = head.replace("[512]", f"[{res}]")
+    if spp:
+        head = head.replace('"integer pixelsamples" [4]',
+                            f'"integer pixelsamples" [{spp}]')
+    if kind == "lit":
+        world = LIT_LIGHTS.format(patch=patch_text())
+    else:
+        world = (f'AttributeBegin\nRotate -90 1 0 0\nLightSource "{kind}" '
+                 '"string mapname" "sky.exr" "color L" [0.6 0.6 0.6]\n'
+                 'AttributeEnd\n' + base_text[
+                     base_text.index('Texture "checks"'):
+                     base_text.index('Shape "trianglemesh"')])
+    return f"{head}WorldBegin\n{world}{mesh}WorldEnd\n"
+
+
+def meshlight_text(text):
+    """bench3's or bench6's disk light as a fan of FAN_TRIS triangles of the
+    same radius and L, and Accelerator "none"."""
+    disk = 'Shape "disk" "float radius" [0.3]'
+    assert text.count(disk) == 1
+    return text.replace(disk, f'Shape "trianglemesh" {fan_text()}').replace(
+        "WorldBegin", 'Accelerator "none"\nWorldBegin', 1)
 
 
 def emit(**kw):
@@ -1119,7 +1321,7 @@ def dispatch_turns(label, scene, opts, device,
     emit(phase="dispatch", scene=label, order=list(order), runs=out)
 
 
-def photon_maps(label, scene, prm, seed):
+def photon_maps(label, scene, prm, seed, out=None):
     """Phase "photons": build_maps on the card (the scene's tables on it),
     with its batches, paths shot, per map the photons kept and stored,
     n_paths, the batch that filled it, buckets and bucket cap, and its
@@ -1135,9 +1337,12 @@ def photon_maps(label, scene, prm, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     shoot, host = sum(stats.pop("shoot_s")), sum(stats.pop("host_s"))
-    emit(phase="photons", scene=label, wall_s=wall, shoot_s=shoot,
-         host_collect_s=host, grid_build_s=wall - shoot - host,
-         params=prm._asdict(), **stats)
+    line = dict(phase="photons", scene=label, wall_s=wall, shoot_s=shoot,
+                host_collect_s=host, grid_build_s=wall - shoot - host,
+                params=prm._asdict(), **stats)
+    emit(**line)
+    if out is not None:
+        out.update(line)
     return maps
 
 
@@ -1281,6 +1486,14 @@ def gi_render(label, text, device, reps, golden=None, limits=None):
     if golden and not (rel < limits[0] and mean < limits[1]):
         raise AssertionError(f"{label}: outside its band: {rel}, {mean}")
     return r
+
+
+def light_sets(rs, prefix):
+    """The kernel line's entries for the parity results whose set starts
+    with `prefix`, by set and mode."""
+    return {f"{r['set']}, {r['mode']}": {k: r[k] for k in (
+        "rays", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by")}
+        for r in rs if r["set"].startswith(prefix)}
 
 
 def gi_sets(device):
@@ -1532,6 +1745,184 @@ def ab_main(old_dir, reps=5, renders=2, new_first=False):
                                  if prof["traversal_ms"][k]})
         emit(phase="ab_render", scene=label, turns=turns(new_first),
              walls_s=walls, walk_device_ms=device_ms)
+
+
+def light_phases(device, launches, res, rgb_b3, photons6, profile=False):
+    """Phases 26-28 (the lights and textures), their launches into
+    `launches`, their parity results into `res`. rgb_b3: phase 13's bench3
+    image; photons6: phase 19's bench6 photon line."""
+    import numpy as np
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch.scene.data import to_device
+    from tpuprt_torch.scene.parser import load_scene, load_scene_string
+    # 26. Main path, every light and texture: config4_big lit (LIT_LIGHTS)
+    # at 512x512 x 4 spp through the tile walk, its maps written beside the
+    # scene text and named relative to it; the wall best of 2, the peak
+    # device memory. Then the sky alone under "infinite" and under
+    # "infinitesample", which estimate the same image, held to each other.
+    with tempfile.TemporaryDirectory() as lit_dir:
+        t0 = time.perf_counter()
+        write_lit_maps(lit_dir)
+        maps_s = time.perf_counter() - t0
+        with open(SCENE) as f:
+            base_text = f.read()
+        paths = {}
+        for kind in ("lit", "infinite", "infinitesample"):
+            paths[kind] = os.path.join(lit_dir, f"config4_big_{kind}.pbrt")
+            with open(paths[kind], "w") as f:
+                f.write(lit_text(base_text, kind))
+        t0 = time.perf_counter()
+        lit, lit_opts = load_scene(paths["lit"])
+        im = lit.images
+        emit(phase="load", scene="config4_big/lit",
+             seconds=time.perf_counter() - t0, write_maps_s=maps_s,
+             triangles=lit.triangles.count, lights=list(
+                 lit.lights.kinds_list), texture_nodes=len(
+                 lit.textures.nodes), bump=lit.materials.has_bump,
+             images=[[int(im.level_h[i, 0]), int(im.level_w[i, 0]),
+                      im.nlevels[i]] for i in range(im.count)],
+             image_bytes=im.texels.numel() * 4,
+             env_dist_bytes=sum(4 * (e.cdf_v.numel() + e.func_v.numel())
+                                for e in lit.env_importance))
+        assert lit.triangles.count == 99458 + 2 * PATCH_QUADS ** 2
+        lit_opts = lit_opts._replace(chunk_size=1 << 17, half_readback=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rgb, launches["config4_big/lit"], first_s, wall = render_path(
+            "config4_big/lit", lit, lit_opts, device, ["bvh_tiles"])
+        peak = torch.cuda.max_memory_allocated()
+        walls = [wall]
+        t0 = time.perf_counter()
+        R.render(lit, lit_opts, device=device)
+        walls.append(time.perf_counter() - t0)
+        emit(phase="render", scene="config4_big/lit", shape=list(rgb.shape),
+             spp=lit_opts.sampler.pixelsamples,
+             launches=launches["config4_big/lit"], finite=True,
+             first_render_s=first_s, wall_s=min(walls), walls_s=walls,
+             samples_per_s=lit_opts.xres * lit_opts.yres *
+             lit_opts.sampler.pixelsamples / min(walls),
+             peak_device_bytes=peak, mean=float(rgb.mean()))
+        if profile:
+            profile_render("config4_big/lit", lit, lit_opts, device)
+        # The tile walk on this scene's BVH: its camera rays in the front
+        # end's order, and the render's largest call, a pass's fused
+        # visibility batch (each light's shadow segment and the area and
+        # sky lights' BSDF-strategy rays, 7 x 2^17 lanes, traced nearest).
+        lit_d = to_device(lit, device)
+        vis = capture_rays(lit, lit_opts, device, bvh_cuda,
+                           "traverse_tiles", 4)[False]
+        for label, rays in (
+                ("camera", sort_packed(lit_d.accel, camera_rays(
+                    lit_d, lit_opts, device))),
+                ("visibility", vis)):
+            res["bvh_tiles"] += tiles_parity(f"config4_big/lit/{label}",
+                                             lit_d.accel, rays, reps=3)
+        del lit, lit_d, vis
+        # The shading layer on two devices: the same code at a small film
+        # on the CPU and on the card, f32 readback on both.
+        small = os.path.join(lit_dir, "config4_big_lit_small.pbrt")
+        with open(small, "w") as f:
+            f.write(lit_text(base_text, "lit", res=DEV_RES, spp=1))
+        sc, so = load_scene(small)
+        so = so._replace(half_readback=False)
+        t0 = time.perf_counter()
+        cpu_rgb, cpu_alpha = R.render(sc, so, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gpu_rgb, gpu_alpha = R.render(sc, so, device=device)
+        near = np.isclose(gpu_rgb, cpu_rgb, atol=DEV_TOL,
+                          rtol=DEV_TOL).all(-1)
+        emit(phase="devices", scene="config4_big/lit",
+             shape=list(gpu_rgb.shape), spp=1, cpu_s=cpu_s,
+             share_close=float(near.mean()), share_limit=DEV_SHARE,
+             tol=DEV_TOL, max_abs_diff=float(np.abs(gpu_rgb - cpu_rgb).max()),
+             alpha_equal=bool(np.array_equal(gpu_alpha, cpu_alpha)),
+             mean_cpu=float(cpu_rgb.mean()), mean_card=float(gpu_rgb.mean()))
+        assert np.isfinite(gpu_rgb).all() and cpu_rgb.mean() > 0.01
+        assert np.array_equal(gpu_alpha, cpu_alpha)
+        assert near.mean() >= DEV_SHARE, near.mean()
+        del sc, cpu_rgb, gpu_rgb
+        env = {}
+        for kind in ("infinite", "infinitesample"):
+            sc, so = load_scene(paths[kind])
+            so = so._replace(chunk_size=1 << 17, half_readback=True)
+            env[kind], launches[f"config4_big/{kind}"], env_first, \
+                env_wall = render_path(f"config4_big/{kind}", sc, so,
+                                       device, ["bvh_tiles"])
+        rel, mean = band(env["infinite"], env["infinitesample"])
+        emit(phase="render", scene="config4_big/sky", spp=ENV_SPP,
+             shape=list(env["infinite"].shape), finite=True,
+             pair=["infinite", "infinitesample"], band_rel=rel,
+             band_rel_limit=ENV_BAND_REL, band_mean=mean,
+             band_mean_limit=ENV_BAND_MEAN, wall_s=env_wall,
+             launches={k: launches[f"config4_big/{k}"]["bvh_tiles"]
+                       for k in env})
+        assert rel <= ENV_BAND_REL and mean <= ENV_BAND_MEAN, (rel, mean)
+        del env
+
+    # 27. Main path, a triangle-mesh emitter in path mode: bench3 with its
+    # disk light as a 48-triangle fan and Accelerator "none" (60 prims, all
+    # through mt_best) at 256x256 x 32 spp, held to phase 13's bench3.
+    with open(BENCH3) as f:
+        m3, m3_opts = load_scene_string(meshlight_text(f.read()))
+    assert m3.accel is None and m3.triangles.count == 10 + FAN_TRIS
+    m3_opts = m3_opts._replace(chunk_size=1 << 17, half_readback=True)
+    rgb, launches["bench3/meshlight"], first_s, wall = render_path(
+        "bench3/meshlight", m3, m3_opts, device, ["mt_best", "mt_best_any"])
+    rel, mean = band(rgb, rgb_b3)
+    emit(phase="render", scene="bench3/meshlight", shape=list(rgb.shape),
+         spp=m3_opts.sampler.pixelsamples, triangles=m3.triangles.count,
+         launches=launches["bench3/meshlight"], finite=True,
+         against="bench3", band_rel=rel, band_rel_limit=MESH3_BAND_REL,
+         band_mean=mean, band_mean_limit=MESH3_BAND_MEAN,
+         first_render_s=first_s, wall_s=wall,
+         samples_per_s=m3_opts.xres * m3_opts.yres *
+         m3_opts.sampler.pixelsamples / wall)
+    assert rel <= MESH3_BAND_REL and mean <= MESH3_BAND_MEAN, (rel, mean)
+    # mt_best on the fan's sets: the camera rays, and the pass (three
+    # calls: the bounce, its shadow rays, its BSDF-strategy rays) with the
+    # most live shadow rays, as phase 11 takes bench3's.
+    m3_d = to_device(m3, device)
+    m3_tris = mt_cuda.pack_table(m3_d.triangles)
+    res["mt_best"] += mt_parity("bench3/meshlight/camera", m3_tris,
+                                camera_rays(m3_d, m3_opts, device),
+                                modes=(False,))
+    first = capture_rays(m3, m3_opts, device, mt_cuda, "mt_best", 0,
+                         period=3)
+    res["mt_best"] += mt_parity("bench3/meshlight/shadow", m3_tris,
+                                first[(1, True)], modes=(True,))
+    res["mt_best"] += mt_parity("bench3/meshlight/bsdf", m3_tris,
+                                first[(2, False)], modes=(False,))
+    del m3, m3_d, first
+
+    # 28. Photon emission from triangles: bench6 with the same fan and
+    # Accelerator "none", its maps built on the card (counts beside
+    # bench6's of phase 19), then load -> maps -> render at 256x256 x 4
+    # spp as bench_config6 times bench6.
+    with open(BENCH6) as f:
+        m6_text = meshlight_text(f.read())
+    with tempfile.TemporaryDirectory() as d6:
+        m6_path = os.path.join(d6, "bench6_meshlight.pbrt")
+        with open(m6_path, "w") as f:
+            f.write(m6_text)
+        m6, m6_opts = load_scene(m6_path)
+        assert m6.accel is None and m6.triangles.count == 10 + FAN_TRIS
+        photons_m6 = {}
+        photon_maps("bench6/meshlight", to_device(m6, device), m6_opts.photon,
+                    m6_opts.seed, photons_m6)
+        emit(phase="photons", scene="bench6/meshlight", beside="bench6",
+             **{k: {label: {c: st[k][c] for c in ("photons", "stored",
+                                                  "n_paths")}
+                    for label, st in (("bench6", photons6),
+                                      ("bench6/meshlight", photons_m6))}
+                for k in ("caustic", "direct", "indirect")},
+             paths_shot={"bench6": photons6["paths_shot"],
+                         "bench6/meshlight": photons_m6["paths_shot"]})
+        r = photon_render("bench6/meshlight", m6_path, device)
+        launches["bench6/meshlight"] = r["launches"]
+        del m6
+
 
 
 def main(argv=None):
@@ -1845,6 +2236,7 @@ def main(argv=None):
     # 13. Main path, path mode at full size: bench3 with bench.py's pool.
     rgb, launches["bench3"], first_s, wall = render_path(
         "bench3", b3, b3_opts, device, ["mt_best", "mt_best_any"])
+    rgb_b3 = rgb                     # phase 27's reference
     emit(phase="render", scene="bench3", shape=list(rgb.shape),
          spp=b3_opts.sampler.pixelsamples, launches=launches["bench3"],
          finite=True, first_render_s=first_s, wall_s=wall,
@@ -1938,7 +2330,8 @@ def main(argv=None):
     del shots
 
     # 19. bench6's photon maps, built on the card.
-    maps6 = photon_maps("bench6", b6_d, prm6, b6_opts.seed)
+    photons6 = {}
+    maps6 = photon_maps("bench6", b6_d, prm6, b6_opts.seed, photons6)
     got = capture_rays(b6, b6_opts, device, mt_cuda, "mt_best", 0,
                        maps=maps6)
     assert got[False].shape[1] > b6_opts.chunk_size, got[False].shape
@@ -1996,6 +2389,10 @@ def main(argv=None):
             profile_render(label, scene, opts._replace(half_readback=True),
                            device)
 
+    # 26-28. The lights and textures.
+    light_phases(device, launches, res, rgb_b3, photons6, args.profile)
+    del rgb_b3
+
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
                "bvh_instanced": "rocks", "mt_best": "config4_big/none"}
@@ -2033,10 +2430,20 @@ def main(argv=None):
         if name == "bvh_tiles":
             entry["config5_huge_launches"] = \
                 launches["config5_huge"]["bvh_tiles"]
+            # The lights and textures path (phase 26) and its sets.
+            entry["config4_big_lit_launches"] = \
+                launches["config4_big/lit"]["bvh_tiles"]
+            entry["light_sets"] = light_sets(rs, "config4_big/lit/")
         if name == "mt_best":
             # bench3's path: its launches by mode and its camera set.
             b3_cam = next(r for r in rs if r["set"] == "bench3/camera")
             entry.update(
+                # The triangle-mesh emitters (phases 27 and 28).
+                **{f"{p.replace('/', '_')}_launches": launches[p]["mt_best"]
+                   for p in ("bench3/meshlight", "bench6/meshlight")},
+                **{f"{p.replace('/', '_')}_launches_any_hit":
+                   launches[p]["mt_best_any"]
+                   for p in ("bench3/meshlight", "bench6/meshlight")},
                 bench3_launches=launches["bench3"]["mt_best"],
                 bench3_launches_any_hit=launches["bench3"]["mt_best_any"],
                 bench3_camera={k: b3_cam[k] for k in (
@@ -2060,7 +2467,9 @@ def main(argv=None):
                 gi_sets={r["set"]: {k: r[k] for k in (
                     "rays", "mode", "ms", "host_ms", "plain_ms", "bound_ms",
                     "bound_by")} for r in rs if r["set"].startswith(
-                        tuple(GI_GOLDEN))})
+                        tuple(GI_GOLDEN))},
+                # The mesh emitter's sets (phase 27).
+                light_sets=light_sets(rs, "bench3/meshlight/"))
         kernels.append(entry)
     emit(kernels=kernels,
          library_note="no PyTorch call computes a BVH walk or a nearest "

@@ -259,7 +259,10 @@ def grid_mesh(n):
     ('Accelerator "grid"', MESH, "grid"),
     ('Accelerator "kdtree"', MESH, "kdtree"),
     ('Accelerator "bvh"', 'Shape "sphere"\n' + MESH, "bvh"),
-    ("", 'AreaLightSource "area"\n' + MESH, "area lights on shape"),
+    # A mesh emitter parses (brute force); the case keeps its original id.
+    pytest.param("", 'AreaLightSource "area"\n' + MESH, None,
+                 id='-AreaLightSource "area"\n' + MESH +
+                 '-area lights on shape'),
     ("", 'AreaLightSource "area"\nShape "cone"\n', "area lights on shape"),
     ("", 'AreaLightSource "goniometric"\n' + MESH, "not ported"),
     ("", 'AreaLightSource "area"\nObjectBegin "o"\n' + MESH + 'ObjectEnd\n',

@@ -73,6 +73,10 @@ def assert_tables_equal(a, b, path="scene"):
         for f in dataclasses.fields(a):
             assert_tables_equal(getattr(a, f.name), getattr(b, f.name),
                                 f"{path}.{f.name}")
+    elif type(a) is tuple and any(dataclasses.is_dataclass(x) for x in a):
+        assert type(b) is tuple and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_tables_equal(x, y, f"{path}[{i}]")
     else:
         assert a == b, path
 

@@ -141,7 +141,7 @@ def test_sample_emission_matches_tpuprt(which):
     u = rng.uniform(0, 1, (5, N)).astype(np.float32)
     je = jem.sample_emission(jscene, jnp.asarray(lid), *map(jnp.asarray, u))
     te = tem.sample_emission(tscene, torch.from_numpy(lid),
-                             *map(torch.from_numpy, u[:4]))
+                             *map(torch.from_numpy, u))
     for k in ("o", "d", "pdf", "Le"):
         np.testing.assert_allclose(te[k].numpy(), np.asarray(je[k]),
                                    rtol=1e-5, atol=1e-5, err_msg=k)

@@ -53,6 +53,16 @@ def uniform_sphere_pdf():
     return 1.0 / (4.0 * math.pi)
 
 
+def uniform_sample_cone(u1, u2, costhetamax):
+    """core/mc.cpp:140-149 -- a direction uniform in the cone of half-angle
+    acos(costhetamax) about +z."""
+    costheta = (1.0 - u1) * 1.0 + u1 * costhetamax      # Lerp(u1, 1, max)
+    sintheta = torch.sqrt(torch.clamp(1.0 - costheta * costheta, min=1e-12))
+    phi = u2 * 2.0 * math.pi
+    return torch.stack([torch.cos(phi) * sintheta, torch.sin(phi) * sintheta,
+                        costheta], dim=-1)
+
+
 def uniform_sample_cone_frame(u1, u2, costhetamax, x, y, z):
     """core/mc.cpp:150-158 -- a direction uniform in the cone of half-angle
     acos(costhetamax) about z, in the frame (x, y, z)."""

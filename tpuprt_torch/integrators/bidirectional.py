@@ -112,7 +112,7 @@ def li(scene: SceneData, o, d, mint, maxt, cfg, px, py, s_idx,
     lid, pick_pdf = emission.pick_light_uniform(scene,
                                                 rng.uniform(ph, 0x17, 0))
     em = emission.sample_emission(scene, lid, *(rng.uniform(ph, 0x17, k)
-                                                for k in (1, 2, 3, 4)))
+                                                for k in (1, 2, 3, 4, 5)))
     le_ok = em["pdf"] > 0.0
     # The correct factor Le nLights / pdf (the reference drops Le).
     Le = em["Le"] / torch.clamp(em["pdf"] * pick_pdf, min=1e-20)[..., None]

@@ -107,7 +107,7 @@ def build_virtual_lights(scene: SceneData, prm: IgiParams,
                       nl - 1)
     light_pdf = func[lid] / torch.clamp(func_int, min=1e-20)
     em = emission.sample_emission(scene, lid.to(torch.int32), l0x, l0y,
-                                  l1x, l1y)
+                                  l1x, l1y, rng.uniform(sh, i, 0x55))
     alpha = em["Le"] / torch.clamp(em["pdf"] * light_pdf,
                                    min=1e-20)[..., None]
     alive = (em["pdf"] > 0.0) & (light_pdf > 0.0) & \

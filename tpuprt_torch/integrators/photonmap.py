@@ -95,7 +95,9 @@ def shoot_batch(scene: SceneData, base: int, n: int, depth_bound: int,
     u = [rng.radical_inverse(idx, b) for b in (2, 3, 5, 7, 11)]
     ph = rng.hash_u32(idx, seed, 0x9107)
     lid, light_pdf = emission.pick_light_uniform(scene, u[4])
-    em = emission.sample_emission(scene, lid, *u[:4])
+    # The mesh emitter's triangle pick (photonmap.py:94).
+    em = emission.sample_emission(scene, lid, *u[:4],
+                                  rng.uniform(ph, 0, 0x51))
     alpha = em["Le"] / torch.clamp(em["pdf"] * light_pdf,
                                    min=1e-20)[..., None]
     alive = (em["pdf"] > 0.0) & torch.any(alpha > 0.0, -1)

@@ -3,9 +3,11 @@ nested dicts of numpy arrays, becomes a port SceneData.
 
 `tables` mirrors tpuprt's dataclasses: a dataclass becomes a dict of its
 fields (arrays as numpy, static fields as they are), a NamedTuple (texture
-node metadata) becomes a dict of its fields. Fields the port's tables do
-not have must be empty (no volumes, images or environment maps); the
-accelerator is a BVH, a uniform grid, a kd-tree or none (brute force).
+node metadata) becomes a dict of its fields. tpuprt's tuple of image
+pyramids becomes the port's packed ImageTable (scene/build.pack_images),
+its importance tables EnvDists. Fields the port's tables do not have must
+be empty (no volumes); the accelerator is a BVH, a uniform grid, a kd-tree
+or none (brute force).
 Anything else raises NotImplementedError. The BVH's rows are padded to 128 columns, as the port
 stores them, and get the port's child-id table and depth
 (accel/bvh_build.child_table); an instance table gets the port's top-level
@@ -27,6 +29,8 @@ from ..accel.bvh_build import child_table, pad_rows, tree_links
 from ..accel.instances import build_top
 from ..textures.graph import TexGraph, TexNodeMeta
 from . import data as D
+from .build import pack_images
+from .data import to_device
 
 _NESTED = {"triangles": D.TriangleTable, "materials": D.MaterialTable,
            "textures": TexGraph, "lights": D.LightTable,
@@ -58,6 +62,10 @@ def _build(cls, d: dict, device, where: str):
                  max_depth=int(depth.max(initial=0)))
     if cls is D.InstanceTable:
         d = dict(d, top_nodes=build_top(d["entry_bbox"]))
+    if cls is D.LightTable:
+        area = np.asarray(d["kind"]) == D.LIGHT_AREA
+        d = dict(d, area_geoms_present=tuple(sorted(
+            int(g) for g in set(np.asarray(d["area_geom_kind"])[area]))))
     if extra:
         raise NotImplementedError(f"{where}: {sorted(extra)} not ported")
     kw = {}
@@ -88,7 +96,16 @@ def from_numpy_tables(tables: dict, device) -> D.SceneData:
             raise NotImplementedError(f"accelerator {sorted(accel)} is not "
                                       "ported")
     top = {k: v for k, v in tables.items() if k not in nested}
+    images = top.pop("images", ())
+    env = top.pop("env_importance", None) or ()
     scene = _build(D.SceneData, top, device, "SceneData")
+    scene = dataclasses.replace(
+        scene, images=to_device(pack_images(
+            [(im["levels"], im["wrap"]) for im in images]), device)
+        if images else None,
+        env_importance=tuple(D.EnvDist(**{
+            k: torch.tensor(v, device=device) if isinstance(v, np.ndarray)
+            else v for k, v in e.items()}) for e in env))
     return dataclasses.replace(scene, **{
         k: None if tables.get(k) is None else
         _build(cls, tables[k], device, k) for k, cls in nested.items()})

@@ -1,9 +1,11 @@
 """Host-side scene compilation: builder calls -> SceneData (port of
 tpuprt/scene/build.py for quadrics, triangle meshes and their non-emissive
-ObjectInstance prototypes, matte and plastic materials, constant and
-checkerboard textures, point, distant and infinite lights, area lights
-on a sphere, disk or cylinder, and the accelerator policy: the BVH, the
-uniform grid, the kd-tree, or none).
+ObjectInstance prototypes, the matte, plastic, glass and mirror materials
+with their bump textures, the texture graph and its MIP pyramids, every
+light kind but instanced emitters (point, spot, distant, projection,
+goniometric, infinite with or without a map and its importance tables,
+area lights on a quadric or a triangle mesh), and the accelerator policy:
+the BVH, the uniform grid, the kd-tree, or none).
 
 All assembly is host numpy with the reference's exact operations, so the
 finished tables equal the JAX package's bit for bit; `build()` wraps them
@@ -47,6 +49,7 @@ class _Mesh:
     tangents: Optional[np.ndarray]
     material: int
     flip: float
+    area_light: int = -1
 
 
 @dataclass
@@ -57,8 +60,13 @@ class _Light:
     params: np.ndarray = field(default_factory=lambda: np.zeros(
         8, np.float32))
     nsamples: int = 1
+    image: int = -1
+    importance: bool = False
+    area_geom_kind: int = D.AREA_GEOM_QUADRIC
     area_first: int = 0
+    area_count: int = 1
     area_total: float = 0.0
+    tri_areas: Optional[np.ndarray] = None
 
 
 def _t(a):
@@ -73,6 +81,7 @@ class SceneBuilder:
         self.tex_nodes: List[TexNodeMeta] = []
         self.tex_fparams: List[np.ndarray] = []
         self.tex_w2t: List[np.ndarray] = []
+        self.images: List[Tuple[Tuple[np.ndarray, ...], int]] = []
         self.lights: List[_Light] = []
         self.protos: List[dict] = []
         self.instances: List[Tuple[int, np.ndarray]] = []
@@ -84,14 +93,15 @@ class SceneBuilder:
         self._const_cache: Dict[Tuple[float, float, float], int] = {}
 
     # ---- textures -------------------------------------------------------
-    def add_texture(self, meta: TexNodeMeta, fparams=None) -> int:
+    def add_texture(self, meta: TexNodeMeta, fparams=None, w2t=None) -> int:
         check_node(meta)
         fp = np.zeros(16, np.float32)
         if fparams is not None:
             fp[: len(fparams)] = np.asarray(fparams, np.float32)
         self.tex_nodes.append(meta)
         self.tex_fparams.append(fp)
-        self.tex_w2t.append(np.eye(4, dtype=np.float32))
+        self.tex_w2t.append(np.eye(4, dtype=np.float32) if w2t is None
+                            else np.asarray(w2t, np.float32))
         return len(self.tex_nodes) - 1
 
     def constant_texture(self, value) -> int:
@@ -105,13 +115,18 @@ class SceneBuilder:
         self._const_cache[key] = tid
         return tid
 
+    def add_image(self, levels: Tuple[np.ndarray, ...], wrap: int = 0) -> int:
+        """A MIP pyramid (io/mipmap_build.build_pyramid) and its wrap mode
+        (0 repeat, 1 black, 2 clamp)."""
+        self.images.append((levels, wrap))
+        return len(self.images) - 1
+
     # ---- materials ------------------------------------------------------
     def add_material(self, kind: str, tex_slots: List[int],
                      bump: int = -1) -> int:
+        """`bump`: the displacement texture's node id, -1 for none."""
         if kind not in MATERIAL_KINDS:
             raise NotImplementedError(f'material "{kind}" is not ported')
-        if bump >= 0:
-            raise NotImplementedError("bump mapping is not ported")
         slots = list(tex_slots) + [-1] * (8 - len(tex_slots))
         self.materials.append((MATERIAL_KINDS[kind], slots[:8], bump))
         return len(self.materials) - 1
@@ -282,11 +297,49 @@ class SceneBuilder:
                                   np.asarray(L, np.float32), params))
         return len(self.lights) - 1
 
-    def add_infinite_light(self, l2w, L=(1.0,) * 3, nsamples=1):
+    def add_spot_light(self, l2w, intensity=(1.0,) * 3, coneangle=30.0,
+                       conedeltaangle=5.0):
+        """A spot light at l2w's origin down its +z (lights/spot.cpp):
+        params [cos total width, cos falloff start]."""
+        params = np.zeros(8, np.float32)
+        params[0] = math.cos(math.radians(coneangle))
+        params[1] = math.cos(math.radians(coneangle - conedeltaangle))
+        self.lights.append(_Light(D.LIGHT_SPOT, np.asarray(l2w, np.float32),
+                                  np.asarray(intensity, np.float32), params))
+        return len(self.lights) - 1
+
+    def add_infinite_light(self, l2w, L=(1.0,) * 3, image=-1, nsamples=1,
+                           importance=False):
+        """importance: infinitesample (lights/infinitesample.cpp), whose
+        luminance x sin(theta) tables are built over the map at build()."""
         self.lights.append(_Light(D.LIGHT_INFINITE,
                                   np.asarray(l2w, np.float32),
                                   np.asarray(L, np.float32),
-                                  np.zeros(8, np.float32), nsamples))
+                                  nsamples=nsamples, image=image,
+                                  importance=importance and image >= 0))
+        return len(self.lights) - 1
+
+    def add_projection_light(self, l2w, intensity=(1.0,) * 3, fov=45.0,
+                             image=-1, aspect=1.0):
+        """lights/projection.cpp: params [1/tan(fov/2) twice, 0, 0, the
+        screen window x0, x1, y0, y1 by the map's aspect]."""
+        params = np.zeros(8, np.float32)
+        inv_tan = 1.0 / math.tan(math.radians(fov) / 2.0)
+        params[0] = inv_tan
+        params[1] = inv_tan
+        if aspect > 1.0:
+            params[4:8] = [-aspect, aspect, -1.0, 1.0]
+        else:
+            params[4:8] = [-1.0, 1.0, -1.0 / aspect, 1.0 / aspect]
+        self.lights.append(_Light(
+            D.LIGHT_PROJECTION, np.asarray(l2w, np.float32),
+            np.asarray(intensity, np.float32), params, image=image))
+        return len(self.lights) - 1
+
+    def add_goniometric_light(self, l2w, intensity=(1.0,) * 3, image=-1):
+        self.lights.append(_Light(
+            D.LIGHT_GONIOMETRIC, np.asarray(l2w, np.float32),
+            np.asarray(intensity, np.float32), image=image))
         return len(self.lights) - 1
 
     def add_area_light_sphere(self, quadric_id: int, L=(1.0,) * 3,
@@ -312,6 +365,23 @@ class SceneBuilder:
                                   area_total=area))
         q.area_light = len(self.lights) - 1
         return q.area_light
+
+    def add_area_light_mesh(self, mesh_id: int, L=(1.0,) * 3, nsamples=1):
+        """An area light on a triangle mesh (ShapeSet, core/shape.h:
+        112-171): its triangles' areas make the pick CDF; the triangle
+        range is resolved at build()."""
+        m = self.meshes[mesh_id]
+        v = m.verts
+        p0, p1, p2 = v[m.idx[:, 0]], v[m.idx[:, 1]], v[m.idx[:, 2]]
+        areas = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
+        self.lights.append(_Light(
+            D.LIGHT_AREA, np.eye(4, dtype=np.float32),
+            np.asarray(L, np.float32), nsamples=nsamples,
+            area_geom_kind=D.AREA_GEOM_TRIS, area_first=mesh_id,
+            area_count=len(areas), area_total=float(areas.sum()),
+            tri_areas=areas))
+        m.area_light = len(self.lights) - 1
+        return m.area_light
 
     # ---- camera ---------------------------------------------------------
     def set_camera(self, cam: D.CameraData):
@@ -345,10 +415,13 @@ class SceneBuilder:
                 flip_normal=_t(z(0, f32)))
 
         verts_l, idx_l, n_l, uv_l, tan_l = [], [], [], [], []
-        hasn_l, hast_l, mat_l, flip_l = [], [], [], []
-        voff = 0
+        hasn_l, hast_l, mat_l, al_l, flip_l = [], [], [], [], []
+        mesh_tri_offset = []
+        voff = toff = 0
         for m in self.meshes:
             nt, nv = len(m.idx), len(m.verts)
+            mesh_tri_offset.append(toff)
+            toff += nt
             verts_l.append(m.verts)
             idx_l.append(m.idx + voff)
             n_l.append(m.normals if m.normals is not None
@@ -360,6 +433,7 @@ class SceneBuilder:
             hasn_l.append(np.full(nt, m.normals is not None))
             hast_l.append(np.full(nt, m.tangents is not None))
             mat_l.append(np.full(nt, m.material, np.int32))
+            al_l.append(np.full(nt, m.area_light, np.int32))
             flip_l.append(np.full(nt, m.flip, np.float32))
             voff += nv
         nt_total = sum(len(m.idx) for m in self.meshes)
@@ -373,7 +447,7 @@ class SceneBuilder:
                 has_normals=_t(np.concatenate(hasn_l)),
                 has_tangents=_t(np.concatenate(hast_l)),
                 material=_t(np.concatenate(mat_l)),
-                area_light=_t(np.full(nt_total, -1, np.int32)),
+                area_light=_t(np.concatenate(al_l)),
                 flip_normal=_t(np.concatenate(flip_l)), count=nt_total)
         else:
             # tpuprt's empty table (one dummy vertex).
@@ -397,7 +471,7 @@ class SceneBuilder:
             kind=_t(np.asarray([m[0] for m in mats], np.int32)),
             tex=_t(np.asarray([m[1] for m in mats], np.int32)),
             bump=_t(np.asarray([m[2] for m in mats], np.int32)),
-            count=len(mats), has_bump=False,
+            count=len(mats), has_bump=any(m[2] >= 0 for m in mats),
             lobe_kinds=tmpl.pop("lobe_kinds"),
             dist_kinds=tmpl.pop("dist_kinds"),
             **{k: _t(v) for k, v in tmpl.items()})
@@ -410,6 +484,35 @@ class SceneBuilder:
         if not nl:
             raise NotImplementedError("scenes without lights are not ported")
         ls = self.lights
+        # A mesh emitter's first triangle, and every light's segment of the
+        # packed area CDF (tpuprt/scene/build.py:603-628): a mesh emitter's
+        # normalized cumulative triangle areas, [0, 1] for the others.
+        cdf_flat: List[float] = []
+        cdf_off, first = [], []
+        max_cnt = 1
+        for l in ls:
+            cdf_off.append(len(cdf_flat))
+            if l.kind == D.LIGHT_AREA and \
+                    l.area_geom_kind == D.AREA_GEOM_TRIS:
+                first.append(mesh_tri_offset[l.area_first])
+                c = np.concatenate([[0.0], np.cumsum(l.tri_areas)])
+                c /= max(c[-1], 1e-12)
+                cdf_flat.extend(c.tolist())
+                max_cnt = max(max_cnt, l.area_count)
+            else:
+                first.append(l.area_first)
+                cdf_flat.extend([0.0, 1.0])
+        # Importance tables: an infinite light's third meta element indexes
+        # env_importance, -1 for cosine sampling.
+        env_dists, inf_meta = [], []
+        for i, l in enumerate(ls):
+            if l.kind != D.LIGHT_INFINITE:
+                continue
+            imp = -1
+            if l.importance:
+                imp = len(env_dists)
+                env_dists.append(_build_env_dist(self.images[l.image][0][0]))
+            inf_meta.append((i, l.image, imp))
         i32 = lambda v: _t(np.asarray(v, np.int32))
         lt_tab = D.LightTable(
             kind=i32([l.kind for l in ls]),
@@ -419,20 +522,25 @@ class SceneBuilder:
             spectrum=_t(np.stack([l.spectrum for l in ls])),
             params=_t(np.stack([l.params for l in ls])),
             nsamples=i32([l.nsamples for l in ls]),
-            image=i32([-1] * nl),
-            area_geom_kind=i32([D.AREA_GEOM_QUADRIC] * nl),
-            area_first=i32([l.area_first for l in ls]),
-            area_count=i32([1] * nl),
+            image=i32([l.image for l in ls]),
+            area_geom_kind=i32([l.area_geom_kind for l in ls]),
+            area_first=i32(first),
+            area_count=i32([l.area_count for l in ls]),
             area_total_area=_t(np.asarray([l.area_total for l in ls],
                                           np.float32)),
-            cdf_offset=i32([2 * i for i in range(nl)]),
-            area_cdf=_t(np.asarray([0.0, 1.0] * nl, np.float32)),
+            cdf_offset=i32(cdf_off),
+            area_cdf=_t(np.asarray(cdf_flat, np.float32)),
             count=nl,
             kinds_present=tuple(sorted({l.kind for l in ls})),
+            area_geoms_present=tuple(sorted({
+                l.area_geom_kind for l in ls if l.kind == D.LIGHT_AREA})),
             kinds_list=tuple(int(l.kind) for l in ls),
-            infinite_meta=tuple((i, -1, -1) for i, l in enumerate(ls)
-                                if l.kind == D.LIGHT_INFINITE),
-            max_area_count=1)
+            infinite_meta=tuple(inf_meta),
+            dir_map_meta=tuple(
+                (i, l.image) for i, l in enumerate(ls)
+                if l.kind in (D.LIGHT_PROJECTION, D.LIGHT_GONIOMETRIC)
+                and l.image >= 0),
+            max_area_count=max_cnt)
 
         # World bound: each quadric's box of half-width max |params[0:3]|
         # (tpuprt/scene/build.py:685-702), each mesh's vertices.
@@ -479,5 +587,60 @@ class SceneBuilder:
             triangles=tri, materials=materials, textures=textures,
             lights=lt_tab, camera=self.camera, accel=accel,
             instances=inst_tab, quadrics=quad,
+            images=pack_images(self.images) if self.images else None,
+            env_importance=tuple(env_dists),
             world_bound_lo=_t(wlo.astype(np.float32)),
             world_bound_hi=_t(whi.astype(np.float32)))
+
+
+def pack_images(images) -> D.ImageTable:
+    """[(levels, wrap)] -> the packed ImageTable: every level's texels in
+    one f32 column, level by level, image by image."""
+    shape = (len(images), max(len(lv) for lv, _ in images))
+    off = np.zeros(shape, np.int64)
+    hh, ww = np.zeros(shape, np.int32), np.zeros(shape, np.int32)
+    cols, n = [], 0
+    for i, (levels, _) in enumerate(images):
+        for li, lv in enumerate(levels):
+            off[i, li], hh[i, li], ww[i, li] = n, lv.shape[0], lv.shape[1]
+            cols.append(np.asarray(lv, np.float32).reshape(-1, 3))
+            n += lv.shape[0] * lv.shape[1]
+    return D.ImageTable(
+        texels=_t(np.concatenate(cols)), level_off=_t(off),
+        level_h=_t(hh), level_w=_t(ww),
+        nlevels=tuple(len(lv) for lv, _ in images),
+        wrap=tuple(int(w) for _, w in images), count=len(images))
+
+
+def _build_env_dist(finest: np.ndarray) -> D.EnvDist:
+    """infinitesample's importance tables from a map's finest level
+    (tpuprt/scene/build.py:793-830; lights/infinitesample.cpp:102-133):
+    the luminance blurred by a wrapping separable [1/4 1/2 1/4] (the
+    radiance lookup interpolates neighbouring texels, so the importance
+    must cover them), weighted by sin(theta) of each row's centre and
+    floored at 1e-9, then each column's step CDF over rows and the
+    marginal's over columns (ComputeStep1dCDF, core/mc.cpp:31-53)."""
+    img = np.asarray(finest, np.float32)
+    nv, nu = img.shape[0], img.shape[1]          # rows theta, columns phi
+    yw = np.asarray([0.212671, 0.715160, 0.072169], np.float32)
+    lum = img @ yw                               # [nv, nu]
+    for ax in (0, 1):
+        lum = 0.5 * lum + 0.25 * (np.roll(lum, 1, ax) + np.roll(lum, -1, ax))
+    sin_t = np.sin(np.pi * (np.arange(nv) + 0.5) / nv).astype(np.float32)
+    func_v = np.maximum((lum * sin_t[:, None]).T.astype(np.float32), 1e-9)
+
+    def step_cdf(f):
+        n = f.shape[-1]
+        cdf = np.concatenate([np.zeros(f.shape[:-1] + (1,), np.float32),
+                              np.cumsum(f / n, axis=-1)], -1)
+        func_int = cdf[..., -1].copy()
+        cdf /= np.maximum(func_int[..., None], 1e-20)
+        return cdf.astype(np.float32), func_int.astype(np.float32)
+
+    cdf_v, int_v = step_cdf(func_v)
+    func_u = int_v.copy()                        # the columns' integrals
+    cdf_u, int_u = step_cdf(func_u)
+    return D.EnvDist(func_u=_t(func_u), cdf_u=_t(cdf_u),
+                     int_u=_t(np.asarray(int_u, np.float32)),
+                     func_v=_t(func_v), cdf_v=_t(cdf_v), int_v=_t(int_v),
+                     nu=int(nu), nv=int(nv))

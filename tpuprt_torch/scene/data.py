@@ -23,11 +23,15 @@ QUADRIC_PARABOLOID = 4
 QUADRIC_HYPERBOLOID = 5
 
 LIGHT_POINT = 0
+LIGHT_SPOT = 1
 LIGHT_DISTANT = 2
 LIGHT_AREA = 3
 LIGHT_INFINITE = 4
+LIGHT_PROJECTION = 5
+LIGHT_GONIOMETRIC = 6
 
-# Area-light geometry kinds (the port samples AREA_GEOM_QUADRIC only).
+# Area-light geometry kinds (the port samples quadrics and triangle sets;
+# instanced emitters are not ported).
 AREA_GEOM_QUADRIC = 0
 AREA_GEOM_TRIS = 1
 AREA_GEOM_INST = 2
@@ -100,11 +104,48 @@ class MaterialTable:
 
 
 @dataclass
+class ImageTable:
+    """Every MIP pyramid of the scene (MIPMap<Spectrum>, core/mipmap.h) in
+    one packed texel column: level l of image i is the h x w row-major
+    block at ``level_off[i, l]`` of ``texels``, with h = ``level_h[i, l]``
+    and w = ``level_w[i, l]``, for l below ``nlevels[i]``. ``wrap[i]``: 0
+    repeat, 1 black, 2 clamp."""
+    texels: torch.Tensor       # f32[sum of h*w, 3]
+    level_off: torch.Tensor    # i64[I, Lmax]
+    level_h: torch.Tensor      # i32[I, Lmax]
+    level_w: torch.Tensor      # i32[I, Lmax]
+    nlevels: Tuple = ()
+    wrap: Tuple = ()
+    count: int = 0
+
+
+@dataclass
+class EnvDist:
+    """Importance tables of one infinitesample light (lights/
+    infinitesample.cpp:32-138): the marginal over map columns (u, the phi
+    axis) and each column's conditional over rows (v, the theta axis) of
+    luminance x sin(theta), in ComputeStep1dCDF's form (steps func[i] /
+    (n funcInt); a sample's pdf func[offset] / funcInt)."""
+    func_u: torch.Tensor       # f32[nu]
+    cdf_u: torch.Tensor        # f32[nu+1]
+    int_u: torch.Tensor        # f32[]
+    func_v: torch.Tensor       # f32[nu, nv]
+    cdf_v: torch.Tensor        # f32[nu, nv+1]
+    int_v: torch.Tensor        # f32[nu]
+    nu: int = 1
+    nv: int = 1
+
+
+@dataclass
 class LightTable:
-    """Distant, infinite and area lights; ``params[0:3]`` of a distant
-    light is its world direction; an area light's geometry is the quadric
-    ``area_first`` (``area_geom_kind`` AREA_GEOM_QUADRIC) of total area
-    ``area_total_area``."""
+    """Every light of the scene. ``params`` per kind: a spot light's
+    [cos total width, cos falloff start]; a distant light's world
+    direction in [0:3]; a projection light's [p00, p11, 0, 0, screen x0,
+    x1, y0, y1]. ``image``: the map of an infinite, projection or
+    goniometric light, -1 for none. An area light's geometry is the
+    quadric ``area_first`` (AREA_GEOM_QUADRIC) or the ``area_count``
+    triangles from ``area_first`` (AREA_GEOM_TRIS, picked by the area CDF
+    at ``area_cdf[cdf_offset:]``), of total area ``area_total_area``."""
     kind: torch.Tensor         # i32[L]
     l2w: torch.Tensor          # f32[L,4,4]
     w2l: torch.Tensor          # f32[L,4,4]
@@ -120,8 +161,11 @@ class LightTable:
     area_cdf: torch.Tensor
     count: int = 0
     kinds_present: Tuple = ()
+    area_geoms_present: Tuple = ()   # the area lights' AREA_GEOM_* kinds
     kinds_list: Tuple = ()
     infinite_meta: Tuple = ()   # (light id, image id, importance id)
+    dir_map_meta: Tuple = ()    # (light id, image id) of mapped projection
+                                # and goniometric lights
     max_area_count: int = 1
 
 
@@ -262,6 +306,8 @@ class SceneData:
     # The brute-force kernel's packed triangles f32[9,T] (ops/mt_cuda.
     # pack_tris), made once per render by render() when accel is None.
     tris_packed: torch.Tensor = None
+    images: ImageTable = None        # the MIP pyramids, or None
+    env_importance: Tuple = ()       # EnvDist per infinitesample light
     world_bound_lo: torch.Tensor = None  # f32[3]
     world_bound_hi: torch.Tensor = None
 

@@ -6,14 +6,19 @@ SurfaceIntegrator "directlighting", "path", "whitted" and "photonmap",
 Accelerator (with the kd-tree's SAH knobs), WorldBegin/End,
 AttributeBegin/End,
 TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
-ReverseOrientation, Texture "checkerboard" and "constant", Material
-"matte", "plastic", "glass" and "mirror", LightSource "point",
-"infinite" (no map) and "distant",
-AreaLightSource "area" on a sphere, disk or cylinder, Shape "trianglemesh"
-and the six quadrics (sphere, cylinder, disk, cone, paraboloid,
-hyperboloid), and ObjectBegin/ObjectEnd/ObjectInstance of non-emissive
-triangle meshes (ray-transform instancing). Anything else raises
-NotImplementedError naming what is missing.
+ReverseOrientation, Texture of every class tpuprt reads (constant, scale,
+mix, bilerp, uv, checkerboard in 2D and 3D, dots, fbm, wrinkled, windy,
+marble, imagemap; any other class a constant 0.5 gray, as tpuprt's),
+Material "matte", "plastic", "glass" and "mirror" with a "bumpmap",
+LightSource "point", "spot", "distant", "infinite" and "infinitesample"
+(with or without a "mapname"), "projection" and "goniometric",
+AreaLightSource "area" on a sphere, disk, cylinder or triangle mesh, Shape
+"trianglemesh" and the six quadrics (sphere, cylinder, disk, cone,
+paraboloid, hyperboloid), and ObjectBegin/ObjectEnd/ObjectInstance of
+non-emissive triangle meshes (ray-transform instancing). Anything else
+raises NotImplementedError naming what is missing. Image files (an
+imagemap's "filename", a light's "mapname") are read relative to the
+scene file's directory, as tpuprt reads them.
 
 Bracketed number lists are converted with numpy in one call per list, not
 per token, so a multi-megabyte mesh parses in seconds. Values go through
@@ -21,6 +26,7 @@ float64 to float32 exactly as the reference's per-token Python floats do.
 """
 from __future__ import annotations
 
+import math
 import os
 import re
 from typing import Dict, List, Tuple
@@ -34,6 +40,8 @@ from ..integrators.exphotonmap import ExPhotonParams
 from ..integrators.igi import IgiParams
 from ..integrators.irradiancecache import IrradParams
 from ..integrators.photonmap import PhotonParams
+from ..io.exr import read_exr
+from ..io.mipmap_build import build_pyramid
 from ..samplers.samplers import SamplerConfig
 from ..textures.graph import TexNodeMeta
 from . import data as D
@@ -171,7 +179,9 @@ class _Stream:
 class PbrtParser:
     """The API state machine (core/api.cpp) driving a SceneBuilder."""
 
-    def __init__(self):
+    def __init__(self, basedir="."):
+        self.basedir = basedir
+        self._image_cache: Dict[str, int] = {}
         self.builder = SceneBuilder()
         self.ctm = np.eye(4, dtype=np.float32)
         self.ctm_stack: List[np.ndarray] = []
@@ -274,10 +284,10 @@ class PbrtParser:
             self.material_id = None
         elif name == "Texture":
             tex_name = ts.next()[1]
-            ts.next()                 # "float" | "color": constants of
-            tex_class = ts.next()[1]  # either type are rgb nodes
+            tex_type = ts.next()[1]   # "float" | "color"
+            tex_class = ts.next()[1]
             self.named_textures[tex_name] = self._make_texture(
-                tex_class, ts.params())
+                tex_class, tex_type, ts.params())
         elif name == "LightSource":
             self._make_light(ts.next()[1], ts.params())
         elif name == "AreaLightSource":
@@ -330,25 +340,27 @@ class PbrtParser:
 
     def _make_material(self, material) -> int:
         kind, params = material
-        if params.is_texture("bumpmap"):
-            raise NotImplementedError("bump mapping is not ported")
+        # Every material takes an optional float "bumpmap" displacement
+        # (core/material.cpp:29-71).
+        bump = (self.named_textures[params.texture_name("bumpmap")]
+                if params.is_texture("bumpmap") else -1)
         if kind == "matte":
             return self.builder.add_material("matte", [
                 self._child(params, "Kd", (0.5,) * 3),
-                self._child(params, "sigma", 0.0, True)])
+                self._child(params, "sigma", 0.0, True)], bump=bump)
         if kind == "plastic":
             return self.builder.add_material("plastic", [
                 self._child(params, "Kd", (0.25,) * 3),
                 self._child(params, "Ks", (0.25,) * 3),
-                self._child(params, "roughness", 0.1, True)])
+                self._child(params, "roughness", 0.1, True)], bump=bump)
         if kind == "glass":
             return self.builder.add_material("glass", [
                 self._child(params, "Kr", (1.0,) * 3),
                 self._child(params, "Kt", (1.0,) * 3),
-                self._child(params, "index", 1.5, True)])
+                self._child(params, "index", 1.5, True)], bump=bump)
         if kind == "mirror":
             return self.builder.add_material("mirror", [
-                self._child(params, "Kr", (0.9,) * 3)])
+                self._child(params, "Kr", (0.9,) * 3)], bump=bump)
         raise NotImplementedError(f'material "{kind}" is not ported')
 
     def _material_id(self) -> int:
@@ -376,45 +388,164 @@ class PbrtParser:
                 self._proto_cache[(name, i)] = pid
             self.builder.add_instance(pid, self.ctm)
 
-    def _make_texture(self, tex_class, params) -> int:
-        if tex_class == "constant":
-            return self.builder.constant_texture(
-                params.find_spectrum("value", (1.0,) * 3))
-        if tex_class != "checkerboard":
-            raise NotImplementedError(f'texture "{tex_class}" is not ported')
-        if params.find_one("dimension", 2) != 2:
-            raise NotImplementedError("3D checkerboard is not ported")
+    def _make_texture(self, tex_class, tex_type, params) -> int:
+        """Texture (tpuprt/scene/parser.py:526-619)."""
+        b = self.builder
+        is_float = tex_type == "float"
+        # 2D mapping parameters (core/texture.cpp:63-82 defaults).
+        mapping = params.find_one("mapping", "uv")
         fp = np.zeros(16, np.float32)
         fp[8] = params.find_one("uscale", 1.0)
         fp[9] = params.find_one("vscale", 1.0)
         fp[10] = params.find_one("udelta", 0.0)
         fp[11] = params.find_one("vdelta", 0.0)
-        return self.builder.add_texture(TexNodeMeta(
-            kind="checkerboard2d", mapping=params.find_one("mapping", "uv"),
-            aamode=params.find_one("aamode", "closedform"),
-            children=(self._child(params, "tex1", (1,) * 3),
-                      self._child(params, "tex2", (0,) * 3))),
-            fparams=fp)
+        if mapping == "planar":
+            fp[0:3] = params.find_point("v1", (1, 0, 0))
+            fp[3:6] = params.find_point("v2", (0, 1, 0))
+            fp[6] = params.find_one("udelta", 0.0)
+            fp[7] = params.find_one("vdelta", 0.0)
+        w2t = np.linalg.inv(self.ctm).astype(np.float32)
+
+        def child(name, default):
+            if params.is_texture(name):
+                return self.named_textures[params.texture_name(name)]
+            if is_float:
+                # A float texture's constant child; tpuprt's float() of a
+                # colour default raises here (tpuprt/scene/parser.py:548).
+                return b.constant_texture(params.find_one(
+                    name, float(np.ravel(default)[0])))
+            return b.constant_texture(params.find_spectrum(name, default))
+
+        if tex_class == "constant":
+            return b.constant_texture(params.find_spectrum("value",
+                                                           (1.0,) * 3))
+        if tex_class == "scale":
+            return b.add_texture(TexNodeMeta("scale", children=(
+                child("tex1", (1,) * 3), child("tex2", (1,) * 3))))
+        if tex_class == "mix":
+            return b.add_texture(TexNodeMeta("mix", children=(
+                child("tex1", (0,) * 3), child("tex2", (1,) * 3),
+                child("amount", 0.5))))
+        if tex_class == "bilerp":
+            v = np.zeros(16, np.float32)
+            v[0:3] = params.find_spectrum("v00", (0.0,) * 3)
+            v[3:6] = params.find_spectrum("v01", (1.0,) * 3)
+            v[6:9] = params.find_spectrum("v10", (0.0,) * 3)
+            v[9:12] = params.find_spectrum("v11", (1.0,) * 3)
+            return b.add_texture(TexNodeMeta("bilerp", mapping=mapping),
+                                 fparams=v)
+        if tex_class == "uv":
+            return b.add_texture(TexNodeMeta("uv", mapping=mapping),
+                                 fparams=fp)
+        if tex_class == "checkerboard":
+            children = (child("tex1", (1,) * 3), child("tex2", (0,) * 3))
+            if params.find_one("dimension", 2) == 3:
+                return b.add_texture(TexNodeMeta(
+                    "checkerboard3d", children=children), w2t=w2t)
+            return b.add_texture(TexNodeMeta(
+                "checkerboard2d", mapping=mapping, children=children,
+                aamode=params.find_one("aamode", "closedform")), fparams=fp)
+        if tex_class == "dots":
+            return b.add_texture(TexNodeMeta(
+                "dots", mapping=mapping, children=(
+                    child("inside", (1,) * 3), child("outside", (0,) * 3))),
+                fparams=fp)
+        if tex_class in ("fbm", "wrinkled"):
+            v = np.zeros(16, np.float32)
+            v[0] = params.find_one("octaves", 8)
+            v[1] = params.find_one("roughness", 0.5)
+            return b.add_texture(TexNodeMeta(tex_class, mapping="3d"),
+                                 fparams=v, w2t=w2t)
+        if tex_class == "windy":
+            return b.add_texture(TexNodeMeta("windy", mapping="3d"), w2t=w2t)
+        if tex_class == "marble":
+            v = np.zeros(16, np.float32)
+            v[0] = params.find_one("octaves", 8)
+            v[1] = params.find_one("roughness", 0.5)
+            v[2] = params.find_one("scale", 1.0)
+            v[3] = params.find_one("variation", 0.2)
+            return b.add_texture(TexNodeMeta("marble", mapping="3d"),
+                                 fparams=v, w2t=w2t)
+        if tex_class == "imagemap":
+            wrap = {"repeat": 0, "black": 1, "clamp": 2}.get(
+                params.find_one("wrap", "repeat"), 0)
+            img = self._load_image(params.find_one("filename", ""), wrap)
+            return b.add_texture(TexNodeMeta(
+                "imagemap", image=img, mapping=mapping, float_from_y=is_float,
+                trilinear=bool(params.find_one("trilinear", False))),
+                fparams=fp)
+        # Any other class: a constant gray, as tpuprt reads it.
+        return b.constant_texture((0.5,) * 3)
+
+    def _load_image(self, fname: str, wrap: int = 0) -> int:
+        """An EXR named relative to the scene file's directory, as a MIP
+        pyramid; one per (file name, wrap)."""
+        key = f"{fname}|{wrap}"
+        if key not in self._image_cache:
+            rgb, _ = read_exr(os.path.join(self.basedir, fname))
+            self._image_cache[key] = self.builder.add_image(
+                build_pyramid(rgb), wrap)
+        return self._image_cache[key]
 
     def _make_light(self, kind: str, params: ParamSet):
+        """LightSource (tpuprt/scene/parser.py:635-682)."""
+        b = self.builder
+        l2w = self.ctm
         if kind == "point":
-            self.builder.add_point_light(
-                self.ctm @ np.asarray(tfm.translate(
+            b.add_point_light(
+                l2w @ np.asarray(tfm.translate(
                     params.find_point("from", (0, 0, 0))), np.float32),
                 params.find_spectrum("I", (1.0,) * 3))
+        elif kind == "spot":
+            frm = params.find_point("from", (0, 0, 0))
+            dir_ = params.find_point("to", (0, 0, 1)) - frm
+            dir_ = dir_ / max(np.linalg.norm(dir_), 1e-12)
+            _, du, dv = self._coord_sys(dir_)
+            m = np.eye(4, dtype=np.float32)
+            m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = du, dv, dir_, frm
+            b.add_spot_light(l2w @ m, params.find_spectrum("I", (1.0,) * 3),
+                             params.find_one("coneangle", 30.0),
+                             params.find_one("conedeltaangle", 5.0))
         elif kind == "distant":
-            self.builder.add_distant_light(
-                self.ctm, params.find_spectrum("L", (1.0,) * 3),
+            b.add_distant_light(
+                l2w, params.find_spectrum("L", (1.0,) * 3),
                 params.find_point("from", (0, 0, 0)),
                 params.find_point("to", (0, 0, 1)))
-        elif kind == "infinite" and not params.find_one("mapname", ""):
-            self.builder.add_infinite_light(
-                self.ctm, params.find_spectrum("L", (1.0,) * 3),
-                params.find_one("nsamples", 1))
+        elif kind in ("infinite", "infinitesample"):
+            fname = params.find_one("mapname", "")
+            b.add_infinite_light(
+                l2w, params.find_spectrum("L", (1.0,) * 3),
+                self._load_image(fname) if fname else -1,
+                params.find_one("nsamples", 1),
+                importance=kind == "infinitesample")
+        elif kind == "projection":
+            fname = params.find_one("mapname", "")
+            img = self._load_image(fname) if fname else -1
+            aspect = 1.0
+            if img >= 0:
+                lv = b.images[img][0][0]
+                aspect = lv.shape[1] / lv.shape[0]
+            b.add_projection_light(l2w, params.find_spectrum("I", (1.0,) * 3),
+                                   params.find_one("fov", 45.0), img, aspect)
+        elif kind == "goniometric":
+            fname = params.find_one("mapname", "")
+            b.add_goniometric_light(
+                l2w, params.find_spectrum("I", (1.0,) * 3),
+                self._load_image(fname) if fname else -1)
         else:
-            raise NotImplementedError(
-                f'light "{kind}" is not ported (point, distant, and '
-                "infinite without a map)")
+            raise NotImplementedError(f'light "{kind}" is not ported')
+
+    @staticmethod
+    def _coord_sys(v):
+        """tpuprt's CoordinateSystem on the host (tpuprt/scene/parser.py:
+        684-694)."""
+        if abs(v[0]) > abs(v[1]):
+            inv = 1.0 / math.sqrt(v[0] ** 2 + v[2] ** 2)
+            u = np.array([-v[2] * inv, 0, v[0] * inv])
+        else:
+            inv = 1.0 / math.sqrt(v[1] ** 2 + v[2] ** 2)
+            u = np.array([0, v[2] * inv, -v[1] * inv])
+        return v, u, np.cross(v, u)
 
     def _make_shape(self, kind: str, params: ParamSet):
         """Shape (tpuprt/scene/parser.py:696-758): the material is made
@@ -423,11 +554,11 @@ class PbrtParser:
         if kind not in ("trianglemesh", "sphere", "cylinder", "disk", "cone",
                         "paraboloid", "hyperboloid"):
             raise NotImplementedError(f'shape "{kind}" is not ported')
-        if self.area_light is not None and kind not in ("sphere",
-                                                        "cylinder", "disk"):
+        if self.area_light is not None and kind not in (
+                "sphere", "cylinder", "disk", "trianglemesh"):
             raise NotImplementedError(
                 f'area lights on shape "{kind}" are not ported (spheres, '
-                "disks and cylinders)")
+                "disks, cylinders and triangle meshes)")
         mat = self._material_id()
         ro = self.reverse_orientation
         one = params.find_one
@@ -435,10 +566,14 @@ class PbrtParser:
             uv = params.find_floats("uv")
             if uv is None:
                 uv = params.find_floats("st")
-            b.add_trianglemesh(
+            mid = b.add_trianglemesh(
                 self.ctm, params.find_ints("indices"),
                 params.find_floats("P"), params.find_floats("N"), uv,
                 params.find_floats("S"), mat, reverse_orientation=ro)
+            if self.area_light is not None:
+                b.add_area_light_mesh(
+                    mid, self.area_light.find_spectrum("L", (1.0,) * 3),
+                    self.area_light.find_one("nsamples", 1))
             return
         if kind == "sphere":
             r = one("radius", 1.0)
@@ -574,12 +709,14 @@ class PbrtParser:
 
 
 def load_scene(path: str):
-    """Parse a pbrt file: returns (SceneData on the CPU, RenderOptions)."""
+    """Parse a pbrt file: returns (SceneData on the CPU, RenderOptions).
+    Image files are named relative to the file's directory."""
     with open(path) as f:
-        return load_scene_string(f.read())
+        return load_scene_string(f.read(), os.path.dirname(path) or ".")
 
 
-def load_scene_string(text: str):
-    p = PbrtParser()
+def load_scene_string(text: str, basedir: str = "."):
+    """Parse scene text; image files are named relative to `basedir`."""
+    p = PbrtParser(basedir)
     p.parse_string(text)
     return p.finish()
