@@ -145,6 +145,32 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    the card (counts beside phase 19's), then load -> maps -> render at
    256x256 x 4 spp as bench_config6 times bench6: photon emission from
    triangles through mt_best, the image finite, the wall.
+29. scan -- the chunked scan driver on the card (driver "scan") against
+   the pool (driver "wavefront"), both read back in f32, per pixel within
+   atol = rtol = 2e-4 (alpha 1e-5; tests/test_wavefront.py's tolerance):
+   config4_big at 512x512 x 4 spp through the tile walk with
+   directlighting's strategies "all", "one" and "weighted" (each one's
+   band against bench4.exr as information), bench3 at 256x256 x 32 spp in
+   path mode through mt_best in both modes. Then config4_big through the
+   scan in 8 chunks with a writefrequency of 4 chunks and a checkpoint,
+   resumed from the checkpoint: equal to the straight render within 1e-5.
+   Walls, chunks, launches by kernel, peak device memory.
+30. grad -- render_loss_fn of config4_big over its 512x512 film at 1 spp
+   (262,144 samples in one batch; the target the scan render at the
+   file's values) in the checkerboard's two colours, the distant light's
+   L and a translation of each terrain vertex, at Adam's start (colours at
+   half): gradients through the tile walk and through its plain version
+   on the card within rtol 1e-4 (of each tensor's largest), autograd
+   against a central difference (eps 1e-2, the per-sample losses summed
+   in float64) of the first colour channel and of L within 2%, every
+   gradient finite, the vertices' nonzero; 10 steps of torch.optim.Adam
+   (lr 0.05) over the colours halve the loss. Seconds a step, peak device
+   memory, launches a step.
+31. grad -- the same on bench3 over 256x256 at 1 spp (path mode, depth 5,
+   mt_best in both modes) in the red wall's Kd (bench3.pbrt:24), from
+   [0.3 0.3 0.3]: mt_best against its plain version's route within rtol
+   1e-4, autograd against a central difference (eps 1e-3) within 5%, 10
+   Adam steps halve the loss.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -311,6 +337,18 @@ DEV_RES, DEV_SHARE, DEV_TOL = 32, 0.995, 1e-4
 #   0.012414, mean 0.002823 (the fan's area is 0.29% below the disk's).
 ENV_BAND_REL, ENV_BAND_MEAN = 2 * 0.008308, 2 * 0.000547
 MESH3_BAND_REL, MESH3_BAND_MEAN = 2 * 0.012414, 2 * 0.002823
+
+# Phases 29-31, the scan driver and gradients.
+# Scan against pool, per pixel: tests/test_wavefront.py's tolerance.
+SCAN_TOL, SCAN_ALPHA_TOL = 2e-4, 1e-5
+RESUME_TOL = 1e-5          # a resumed render against the straight one
+ROUTE_RTOL = 1e-4          # gradients, kernel route against plain route
+# Autograd against a central difference: tests/test_grad.py:66, 88 (2%,
+# direct lighting) and :296 (5%, path); the steps.
+FD4_TOL, FD4_EPS, FD3_TOL, FD3_EPS = 0.02, 1e-2, 0.05, 1e-3
+ADAM_STEPS, ADAM_LR = 10, 0.05
+BENCH3_KD = (0.65, 0.05, 0.05)    # the red wall, scenes/bench3.pbrt:24
+BENCH3_KD0 = (0.3, 0.3, 0.3)      # where Adam starts
 
 
 def write_lit_maps(d, small=1):
@@ -1925,6 +1963,318 @@ def light_phases(device, launches, res, rgb_b3, photons6, profile=False):
 
 
 
+def film_text(text, res=None, spp=None):
+    """A scene file's text with its film at res x res (from config4_big's
+    512 or bench3's 256) and `spp` pixel samples (from 4 or 32): the
+    camera's raster transform is built from the text."""
+    import re
+    if res:
+        text = re.sub(r'"integer xresolution" \[\d+\] "integer '
+                      r'yresolution" \[\d+\]', f'"integer xresolution" '
+                      f'[{res}] "integer yresolution" [{res}]', text, 1)
+    if spp:
+        text = re.sub(r'"integer pixelsamples" \[\d+\]',
+                      f'"integer pixelsamples" [{spp}]', text, 1)
+    return text
+
+
+def counted(device, fn):
+    """fn() with every kernel count set to 0 before and read after, the
+    host wall (synchronized on the card) and the peak device memory:
+    (result, launches, wall_s, peak_bytes or None)."""
+    import torch
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    cuda = torch.device(device).type == "cuda"
+    for c in (bvh_cuda.launches, mt_cuda.launches):
+        for k in c:
+            c[k] = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**bvh_cuda.launches, **mt_cuda.launches}
+    return out, counts, wall, (torch.cuda.max_memory_allocated()
+                               if cuda else None)
+
+
+def unlaunched(device, counts, need):
+    """The kernels of `need` that counts show unlaunched: on the card
+    those with a count of 0; none on the CPU, where the wrappers run the
+    plain versions (a rehearsal at a small size)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return []
+    return [k for k in need if not counts[k]]
+
+
+def scan_render(label, scene, opts, device, need, **kw):
+    """One render through render() under counted(): (rgb, alpha, line),
+    failing unless every kernel in `need` launched."""
+    import numpy as np
+    from tpuprt_torch import render as R
+    stats = {}
+    (rgb, alpha), counts, wall, peak = counted(device, lambda: R.render(
+        scene, opts, device=device, stats=stats, **kw))
+    missing = unlaunched(device, counts, need)
+    if missing or not np.isfinite(rgb).all():
+        raise AssertionError(f"{label}: launched no {missing} or not "
+                             "finite")
+    return rgb, alpha, dict(scene=label, driver=opts.driver, wall_s=wall,
+                            chunks=stats.get("chunks"),
+                            chunk_lanes=stats.get("chunk_lanes"),
+                            launches=counts, peak_device_bytes=peak)
+
+
+def images_close(label, a, b, rgb_tol, alpha_tol):
+    """Two renders (rgb, alpha) held per pixel: rgb within atol = rtol =
+    rgb_tol, alpha within alpha_tol. Returns the largest differences."""
+    import numpy as np
+    np.testing.assert_allclose(a[0], b[0], atol=rgb_tol, rtol=rgb_tol,
+                               err_msg=label)
+    np.testing.assert_allclose(a[1], b[1], atol=alpha_tol, err_msg=label)
+    return dict(rgb_max_abs_diff=float(np.abs(a[0] - b[0]).max()),
+                alpha_max_abs_diff=float(np.abs(a[1] - b[1]).max()))
+
+
+def scan_phase(device, launches, res4=None, res3=None, spp3=None):
+    """Phase 29: the scan driver on the card against the pool, the
+    strategies "one" and "weighted", checkpoint and resume. res4, res3,
+    spp3 shrink the films for a rehearsal on the CPU."""
+    from tpuprt_torch.io.exr import read_exr
+    from tpuprt_torch.scene.parser import load_scene_string
+    with open(SCENE) as f:
+        c4, o4 = load_scene_string(film_text(f.read(), res4))
+    # The pool's lane count, as phases 4 and 13 render; the scan chunks by
+    # free memory (render.chunk_lanes) unless a checkpoint is asked for.
+    o4 = o4._replace(chunk_size=1 << 17)
+    ref4 = read_exr(GOLDEN)[0]
+    for strategy in ("all", "one", "weighted"):
+        o = o4._replace(direct_strategy=strategy)
+        pool = scan_render(f"config4_big/{strategy}", c4, o._replace(
+            driver="wavefront"), device, ["bvh_tiles"])
+        scan = scan_render(f"config4_big/{strategy}", c4, o._replace(
+            driver="scan"), device, ["bvh_tiles"])
+        diff = images_close(f"config4_big/{strategy}", scan[:2], pool[:2],
+                            SCAN_TOL, SCAN_ALPHA_TOL)
+        if strategy == "all":
+            launches["config4_big/scan"] = scan[2]["launches"]
+        band_rel, band_mean = band(scan[0], ref4) if res4 is None \
+            else (None, None)
+        emit(phase="scan", strategy=strategy, scan=scan[2], pool=pool[2],
+             tol=SCAN_TOL, alpha_tol=SCAN_ALPHA_TOL, band_rel_info=band_rel,
+             band_mean_info=band_mean, **diff)
+    # Checkpoint and resume: the film in 8 chunks (2^17 samples at full
+    # size), the partial image and the checkpoint after 4, then the last 4
+    # from the checkpoint.
+    chunk = o4.xres * o4.yres * o4.sampler.pixelsamples // 8
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "film.npz")
+        o = o4._replace(driver="scan", chunk_size=chunk,
+                        writefrequency=4 * chunk,
+                        filename=os.path.join(tmp, "partial.exr"))
+        straight = scan_render("config4_big/checkpoint", c4, o, device,
+                               ["bvh_tiles"], checkpoint_path=ck)
+        assert os.path.exists(o.filename) and os.path.exists(ck)
+        resumed = scan_render("config4_big/resumed", c4, o, device,
+                              ["bvh_tiles"], checkpoint_path=ck,
+                              resume=True)
+    assert (straight[2]["chunks"], resumed[2]["chunks"]) == (8, 4)
+    diff = images_close("config4_big/resumed", resumed[:2], straight[:2],
+                        RESUME_TOL, RESUME_TOL)
+    emit(phase="scan", check="checkpoint_resume", straight=straight[2],
+         resumed=resumed[2], tol=RESUME_TOL, **diff)
+    # bench3 in path mode at its full size, pool and scan.
+    with open(BENCH3) as f:
+        b3, o3 = load_scene_string(film_text(f.read(), res3, spp3))
+    o3 = o3._replace(chunk_size=1 << 17)     # the pool's, as above
+    pool = scan_render("bench3", b3, o3._replace(driver="wavefront"),
+                       device, ["mt_best", "mt_best_any"])
+    scan = scan_render("bench3", b3, o3._replace(driver="scan"), device,
+                       ["mt_best", "mt_best_any"])
+    diff = images_close("bench3", scan[:2], pool[:2], SCAN_TOL,
+                        SCAN_ALPHA_TOL)
+    launches["bench3/scan"] = scan[2]["launches"]
+    emit(phase="scan", scan=scan[2], pool=pool[2], tol=SCAN_TOL,
+         alpha_tol=SCAN_ALPHA_TOL, **diff)
+
+
+def plain_route(name):
+    """A stand-in for the kernel wrapper bvh_cuda.traverse_tiles or
+    mt_cuda.mt_best that runs its plain version on the same tensors (on
+    the card, too), as a NonDiff call: the gradient's plain route."""
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    if name == "bvh_tiles":
+        def tiles(nodesT, nodeskip, nodemeta, child, rays, *, nn,
+                  any_hit=False):
+            return bvh_cuda.traverse_tiles_ref(nodesT, nodeskip, nodemeta,
+                                               rays, nn=nn, any_hit=any_hit)
+        return bvh_cuda, "traverse_tiles", bvh_cuda.nondiff(tiles)
+    return mt_cuda, "mt_best", bvh_cuda.nondiff(mt_cuda.mt_best_ref)
+
+
+def grad_checks(label, name, device, loss_of, params, fd_cases, fd_tol,
+                adam_params, launches):
+    """The checks of phases 30 and 31 on loss_of(*params) (render_loss_fn
+    of a scene made from the parameter tensors; with f64=True the
+    per-sample losses summed in float64 instead of the f32 mean), at
+    `params`: the gradients through the kernel `name` and through its
+    plain version, within ROUTE_RTOL of each other; autograd against a
+    central difference of the float64 sum at each (parameter, index, eps)
+    of fd_cases, within fd_tol; every gradient finite. Then ADAM_STEPS of
+    torch.optim.Adam at ADAM_LR over the parameters adam_params names,
+    from `params`: the last loss below half the first."""
+    import torch
+    params = [p.detach().clone() for p in params]
+
+    def grads():
+        ps = [p.clone().requires_grad_(True) for p in params]
+        loss = loss_of(*ps)
+        return loss.item(), torch.autograd.grad(loss, ps)
+    (loss0, g_kernel), counts, grad_s, _ = counted(device, grads)
+    if unlaunched(device, counts, [name]):
+        raise AssertionError(f"{label}: the gradient launched no {name}")
+    with patched(*plain_route(name)):
+        _, g_plain = grads()
+    route = []
+    for gk, gp in zip(g_kernel, g_plain):
+        if not (torch.isfinite(gk).all() and torch.isfinite(gp).all()):
+            raise AssertionError(f"{label}: a gradient is not finite")
+        err = float((gk - gp).abs().max())
+        scale = float(gp.abs().max())
+        route.append(dict(max_abs_diff=err, max_abs=scale))
+        assert err <= ROUTE_RTOL * scale, (label, err, scale)
+    fd = []
+    with torch.no_grad():
+        for i, idx, eps in fd_cases:
+            def at(delta):
+                ps = [p.clone() for p in params]
+                ps[i][idx] += delta
+                return float(loss_of(*ps, f64=True))
+            num = (at(eps) - at(-eps)) / (2 * eps)
+            g = float(g_kernel[i][idx])
+            fd.append(dict(param=i, index=list(idx), eps=eps, autograd=g,
+                           fd=num, rel=abs(g - num) / abs(num)))
+            assert abs(g - num) <= fd_tol * abs(num), (label, g, num)
+
+    def adam():
+        ps = [p.clone().requires_grad_(i in adam_params)
+              for i, p in enumerate(params)]
+        opt = torch.optim.Adam([ps[i] for i in adam_params], lr=ADAM_LR)
+        losses = []
+        for _ in range(ADAM_STEPS):
+            opt.zero_grad()
+            loss = loss_of(*ps)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        return losses
+    losses, counts, adam_s, peak = counted(device, adam)
+    if unlaunched(device, counts, [name]):
+        raise AssertionError(f"{label}: Adam launched no {name}")
+    assert losses[-1] < 0.5 * losses[0], (label, losses)
+    launches[f"grad/{label}"] = counts
+    emit(phase="grad", scene=label, loss=loss0, grad_s=grad_s,
+         route=route, route_rtol=ROUTE_RTOL, fd=fd, fd_tol=fd_tol,
+         adam_losses=losses, s_per_step=adam_s / ADAM_STEPS,
+         peak_device_bytes=peak, launches_per_step={
+             k: v / ADAM_STEPS for k, v in counts.items() if v})
+    return g_kernel
+
+
+def loss_ids(opts, device):
+    """Every pixel's sample 0, as render_loss_fn takes them."""
+    import torch
+    lin = torch.arange(opts.xres * opts.yres, device=device)
+    return ((lin % opts.xres).to(torch.int32),
+            (lin // opts.xres).to(torch.int32),
+            torch.zeros_like(lin, dtype=torch.int32))
+
+
+def loss_fn(scene, opts, target, make):
+    """loss_of(*params) for grad_checks: render_loss_fn of make(*params)
+    over every pixel at 1 spp, or with f64 the per-sample losses summed in
+    float64 over their count."""
+    from tpuprt_torch.parallel import shard
+    ids = loss_ids(opts, target.device)
+
+    def loss_of(*ps, f64=False):
+        sc = make(*ps)
+        if f64:
+            e = shard.sample_losses(sc, opts, *ids, target,
+                                    device=target.device)
+            return e.double().sum() / e.numel()
+        return shard.render_loss_fn(sc, opts, *ids, target,
+                                    device=target.device)
+    return loss_of
+
+
+def grad_phases(device, launches, res4=None, res3=None):
+    """Phases 30 and 31: gradients of render_loss_fn on the card, on
+    config4_big (the tile walk) and bench3 (mt_best, path mode). res4 and
+    res3 shrink the films for a rehearsal on the CPU."""
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.scene.data import LIGHT_DISTANT
+    from tpuprt_torch.scene.parser import load_scene_string
+    # 30. config4_big at 1 spp: the checkerboard's two colours, the
+    # distant light's L, a translation of the terrain's vertices; the
+    # target the scan render at the file's values; everything taken from
+    # the colours at half.
+    with open(SCENE) as f:
+        c4, o4 = load_scene_string(film_text(f.read(), res4, 1))
+    o4 = o4._replace(driver="scan")
+    target = torch.from_numpy(R.render(c4, o4, device=device)[0]).to(device)
+    sc = R.on_device(c4, device)
+    nodes = sc.textures.nodes
+    kids = list(next(m for m in nodes if m.kind == "checkerboard2d")
+                .children)
+    distant = sc.lights.kinds_list.index(LIGHT_DISTANT)
+    cols = torch.arange(3, device=device)
+    kid_rows = torch.tensor(kids, device=device)[:, None]
+
+    def c4_scene(colours, light_L, shift):
+        fp = sc.textures.fparams.clone()
+        fp[kid_rows, cols[None]] = colours
+        spec = sc.lights.spectrum.clone()
+        spec[distant] = light_L
+        return dataclasses.replace(
+            sc, textures=dataclasses.replace(sc.textures, fparams=fp),
+            lights=dataclasses.replace(sc.lights, spectrum=spec),
+            triangles=dataclasses.replace(
+                sc.triangles, verts=sc.triangles.verts + shift))
+    colours = sc.textures.fparams[kid_rows, cols[None]]
+    start = [0.5 * colours, sc.lights.spectrum[distant].clone(),
+             torch.zeros_like(sc.triangles.verts)]
+    g = grad_checks("config4_big", "bvh_tiles", device,
+                    loss_fn(sc, o4, target, c4_scene), start,
+                    [(0, (0, 0), FD4_EPS), (1, (0,), FD4_EPS)], FD4_TOL,
+                    (0,), launches)
+    assert float(g[2].abs().max()) > 0, "the translation has no gradient"
+    # 31. bench3 at 1 spp, path mode: the red wall's Kd from BENCH3_KD0.
+    with open(BENCH3) as f:
+        b3, o3 = load_scene_string(film_text(f.read(), res3, 1))
+    o3 = o3._replace(driver="scan")
+    target = torch.from_numpy(R.render(b3, o3, device=device)[0]).to(device)
+    sc3 = R.on_device(b3, device)
+    fp3 = sc3.textures.fparams
+    row = int(torch.nonzero((fp3[:, 0:3] == torch.tensor(
+        BENCH3_KD, device=device)).all(1))[0, 0])
+
+    def b3_scene(kd):
+        fp = fp3.clone()
+        fp[row, 0:3] = kd
+        return dataclasses.replace(sc3, textures=dataclasses.replace(
+            sc3.textures, fparams=fp))
+    grad_checks("bench3", "mt_best", device, loss_fn(sc3, o3, target,
+                                                     b3_scene),
+                [torch.tensor(BENCH3_KD0, device=device)],
+                [(0, (0,), FD3_EPS)], FD3_TOL, (0,), launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--exr", help="also keep config4_big's rendered image "
@@ -2392,6 +2742,11 @@ def main(argv=None):
     # 26-28. The lights and textures.
     light_phases(device, launches, res, rgb_b3, photons6, args.profile)
     del rgb_b3
+    # 29. The scan driver against the pool; 30-31. gradients.
+    t0 = time.perf_counter()
+    scan_phase(device, launches)
+    grad_phases(device, launches)
+    emit(phase="scan_grad", seconds=time.perf_counter() - t0)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -2428,6 +2783,11 @@ def main(argv=None):
                                        "fmad_floor_ms")}
                     for r in rs])
         if name == "bvh_tiles":
+            # The scan driver's and the gradients' paths (phases 29, 30).
+            entry["config4_big_scan_launches"] = \
+                launches["config4_big/scan"]["bvh_tiles"]
+            entry["config4_big_grad_launches"] = \
+                launches["grad/config4_big"]["bvh_tiles"]
             entry["config5_huge_launches"] = \
                 launches["config5_huge"]["bvh_tiles"]
             # The lights and textures path (phase 26) and its sets.
@@ -2446,6 +2806,13 @@ def main(argv=None):
                    for p in ("bench3/meshlight", "bench6/meshlight")},
                 bench3_launches=launches["bench3"]["mt_best"],
                 bench3_launches_any_hit=launches["bench3"]["mt_best_any"],
+                # The scan driver's and the gradients' paths (phases 29,
+                # 31): launches by mode.
+                **{f"{p.replace('/', '_')}_launches": launches[p]["mt_best"]
+                   for p in ("bench3/scan", "grad/bench3")},
+                **{f"{p.replace('/', '_')}_launches_any_hit":
+                   launches[p]["mt_best_any"]
+                   for p in ("bench3/scan", "grad/bench3")},
                 bench3_camera={k: b3_cam[k] for k in (
                     "ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
                 # The photonmap paths: launches by mode, bench6's sets.

@@ -33,6 +33,7 @@ def intersect(scene: SceneData, o, d, mint, maxt, any_hit: bool = False):
     return recompute_t(scene, best_id, o, d, mint)
 
 
+@torch.no_grad()
 def walk_skip_links(scene: SceneData, o, d, mint, maxt,
                     any_hit: bool = False):
     """tpuprt's walk of the rows by their skip links (bvh.py:95-137): each

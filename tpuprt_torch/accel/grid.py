@@ -8,8 +8,10 @@ at each step the ray's voxel's prims are tested in slot order with a strict
 `<` (the first-tested prim wins at equal t; no mailbox), then the axis of
 the first minimum crossing is stepped. A ray stops when its best hit lies
 before the next crossing, when it leaves the grid or when the crossing
-passes maxt. The winner's t is then recomputed with maxt 1e30. The grid
-has no any-hit mode: tpuprt's occluded runs this nearest walk.
+passes maxt. The walk runs detached, as tpuprt's does (accel/grid.py:
+58-61); the winner's t is then recomputed with maxt 1e30 from the rays and
+the live tables, which carries the gradient. The grid has no any-hit mode:
+tpuprt's occluded runs this nearest walk.
 
 Two things keep the torch version short of tpuprt's per-lane loops, with
 each ray's tests and their order unchanged: only the live rays are carried
@@ -98,6 +100,12 @@ def recompute_t(scene: SceneData, best_id, o, d, mint):
 
 def intersect(scene: SceneData, o, d, mint, maxt):
     """Nearest hit by the grid DDA: (t[N], prim_id[N], hit[N])."""
+    return recompute_t(scene, walk(scene, o, d, mint, maxt), o, d, mint)
+
+
+@torch.no_grad()
+def walk(scene: SceneData, o, d, mint, maxt):
+    """The DDA walk, detached: each ray's winning prim id, -1 where none."""
     grid: GridAccel = scene.accel
     nx, ny, nz = grid.nvoxels
     dev = o.device
@@ -164,4 +172,4 @@ def intersect(scene: SceneData, o, d, mint, maxt):
         o_l, d_l, mint_l, maxt_l = o_l[keep], d_l[keep], mint_l[keep], \
             maxt_l[keep]
         step, delta_t, out = step[keep], delta_t[keep], out[keep]
-    return recompute_t(scene, best_id, o, d, mint)
+    return best_id

@@ -161,7 +161,8 @@ def intersect(inst: InstanceTable, o, d, mint, maxt, any_hit=False):
     """(t, code, hit): code = inst * n_tris + proto_tri for hits, -1 else.
     The rays go to the walk in lane order: sorting them (bvh_cuda.sort_key
     over the instances' bounds) did not make the walk faster on the card
-    and costs about as much as the walk (PERF.md). Callers recompute the
+    and costs about as much as the walk (PERF.md). The walk carries no
+    gradient (tpuprt/accel/instances.py:148-165); callers recompute the
     winner's t through recompute_t."""
     rays = torch.cat([o.T, d.T, mint[None], maxt[None]], dim=0).contiguous()
     w2o12 = inst.inst_w2o[:, :3, :].reshape(inst.count, 12).contiguous()

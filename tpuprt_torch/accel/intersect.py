@@ -59,12 +59,21 @@ def _brute_force(scene: SceneData, o, d, mint, maxt, any_hit=False):
         best_t = torch.where(upd, qt, best_t)
         best_id = torch.where(upd, qi.to(torch.int32), best_id)
     if nt:
+        # The kernel finds the winners on the packed table (render()'s, or
+        # one packed here outside autograd); t is recomputed from the
+        # triangle table's own vertices, so a loss keeps their gradient
+        # whether or not the scene holds a packed table.
         tris = scene.tris_packed
         if tris is None:
-            tris = mt_cuda.pack_table(scene.triangles)
-        t_tri, ti, _ = mt_cuda.intersect_packed(
-            tris, (scene.world_bound_lo, scene.world_bound_hi), o, d, mint,
-            maxt, any_hit=any_hit)
+            with torch.no_grad():
+                tris = mt_cuda.pack_table(scene.triangles)
+        ids = mt_cuda.winners(tris, (scene.world_bound_lo,
+                                     scene.world_bound_hi), o, d, mint, maxt,
+                              any_hit=any_hit)
+        p0, p1, p2 = triangle.gather_verts(scene.triangles,
+                                           torch.clamp(ids, min=0).long())
+        t_tri, ti, _ = mt_cuda.recompute(ids, p0, p1 - p0, p2 - p0, o, d,
+                                         mint, maxt)
         upd = t_tri < best_t
         best_t = torch.where(upd, t_tri, best_t)
         best_id = torch.where(upd, ti + nq, best_id)

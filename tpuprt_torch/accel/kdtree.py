@@ -8,8 +8,9 @@ the side of the plane the origin lies on, t1 clamped at each plane it
 crosses), tests the leaf's prims in slot order with a strict `<`, and
 ends the ray when its best hit lies at or before the leaf's exit
 (best_t <= t1 (1 + 1e-6) + 1e-7) or, in any-hit mode, on any hit;
-otherwise t0 advances to max(t1, t0 + 1e-7). The winner's t is then
-recomputed with maxt 1e30, as on the grid.
+otherwise t0 advances to max(t1, t0 + 1e-7). The walk runs detached
+(tpuprt/accel/kdtree.py:78-81); the winner's t is then recomputed with
+maxt 1e30, as on the grid.
 
 As on the grid (accel/grid.py), only the live rays are carried from pass
 to pass, and a leaf's (ray, slot) pairs are tested in one batch with the
@@ -59,6 +60,14 @@ def descend(kd: KdTreeAccel, o, inv_d, t0, t1):
 def intersect(scene: SceneData, o, d, mint, maxt, any_hit: bool = False):
     """Nearest hit (t, prim_id, hit) by kd-restart; any_hit stops a ray at
     the first leaf with a hit (its nearest there)."""
+    return recompute_t(scene, walk(scene, o, d, mint, maxt, any_hit), o, d,
+                       mint)
+
+
+@torch.no_grad()
+def walk(scene: SceneData, o, d, mint, maxt, any_hit: bool = False):
+    """The kd-restart walk, detached: each ray's winning prim id, -1 where
+    none."""
     kd: KdTreeAccel = scene.accel
     lo, hi = kd.bounds_lo, kd.bounds_hi
     n = o.shape[0]
@@ -103,4 +112,4 @@ def intersect(scene: SceneData, o, d, mint, maxt, any_hit: bool = False):
             maxt_l[keep]
         t0, tend_l, inv_d = t0[keep], tend_l[keep], inv_d[keep]
         bt, bid = bt[keep], bid[keep]
-    return recompute_t(scene, best_id, o, d, mint)
+    return best_id

@@ -83,3 +83,26 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
     return (f * f) / torch.clamp(f * f + g * g, min=1e-20)
+
+
+def distribution1d_build(func):
+    """Distribution1D (core/mc.cpp:31-53; tpuprt/core/mc.py:164-175) over
+    nonnegative weights f32[..., N]: (func, cdf f32[..., N + 1], func_int),
+    the cdf the f32 cumulative sum over N, normalized by its last entry
+    (left unnormalized where that is 0)."""
+    n = func.shape[-1]
+    cdf = torch.cat([torch.zeros(func.shape[:-1] + (1,), dtype=func.dtype,
+                                 device=func.device),
+                     torch.cumsum(func, dim=-1) / n], dim=-1)
+    func_int = cdf[..., -1]
+    safe_int = torch.where(func_int > 0, func_int, 1.0)
+    return func, cdf / safe_int[..., None], func_int
+
+
+def distribution1d_sample_discrete(func, cdf, func_int, u):
+    """Index i with probability func[i] / sum (tpuprt/core/mc.py:191-196):
+    the last cdf entry <= u, clamped to [0, N); returns (i i64, pmf)."""
+    n = func.shape[-1]
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, n - 1)
+    pmf = func[idx] / torch.clamp(func_int * n, min=1e-20)
+    return idx, pmf

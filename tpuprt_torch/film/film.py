@@ -27,6 +27,20 @@ def make_film(xres, yres, crop=(0.0, 1.0, 0.0, 1.0), device="cuda") -> Film:
                 xres=xres, yres=yres, crop=tuple(crop))
 
 
+def from_planes(pixels, alpha, weight_sum, xres, yres,
+                crop=(0.0, 1.0, 0.0, 1.0), device="cuda") -> Film:
+    """A film on `device` from its separate planes (tpuprt/film/film.py:
+    61-68): pixels [H,W,3], alpha and weight sum [H,W], as a checkpoint
+    holds them."""
+    data = torch.cat([torch.as_tensor(pixels, dtype=torch.float32),
+                      torch.as_tensor(alpha, dtype=torch.float32)[..., None],
+                      torch.as_tensor(weight_sum,
+                                      dtype=torch.float32)[..., None]],
+                     dim=-1)
+    return Film(data=data.to(device), xres=xres, yres=yres,
+                crop=tuple(crop))
+
+
 def pixel_extent(film: Film):
     """Crop-window pixel bounds (xstart, xcount, ystart, ycount)."""
     x0, x1, y0, y1 = film.crop

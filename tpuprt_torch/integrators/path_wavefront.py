@@ -1,6 +1,6 @@
 """Wavefront rendering with path regeneration (port of
 tpuprt/integrators/path_wavefront.py, modes "path", "directlighting" with
-strategy "all", "whitted" and "photonmap").
+its strategies "all", "one" and "weighted", "whitted" and "photonmap").
 
 One fixed-size lane pool; the moment a lane's path ends, its radiance is
 splatted to the film and the lane restarts with the next (pixel, sample)
@@ -12,7 +12,8 @@ developed image matches it up to the order of the film's sums.
 Mode "path" is path.cpp:58-145: one-light MIS next-event estimation, Le
 only on the first vertex and after a specular bounce, the full BSDF
 continuation, Russian roulette with probability 0.5 from bounce 3 on.
-Mode "directlighting" is directlighting.cpp: every light at every vertex
+Mode "directlighting" is directlighting.cpp: at every vertex every light
+("all"), one light picked uniformly ("one") or by its power ("weighted"),
 and a specular-only continuation. Mode "whitted" is whitted.cpp:44-140:
 every light with one sample and no MIS, a specular-only continuation that
 carries the ray differentials across bounces. Mode "photonmap" is
@@ -66,74 +67,13 @@ def _regen(scene: SceneData, cfg, lin, seed, xres, yres, xstart, xcount,
                 ry_d=d_ry)
 
 
-def _direct_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
-               alive):
-    """Direct lighting, strategy "all": every light with its own streams
-    (path_wavefront.py:105-130), all rays in one traversal launch."""
-    ls3 = rng.uniform(ph, s_idx, bounce, 16)
-    specs = []
-    for i, kind in enumerate(scene.lights.kinds_list):
-        lid = torch.full(p.shape[:-1], i, dtype=torch.int32, device=p.device)
-        l1, l2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 100 + 4 * i,
-                                   seed)
-        b1, b2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 101 + 4 * i,
-                                   seed)
-        bc = smp.integrator_1d(cfg, px, py, s_idx, bounce, 102 + 4 * i, seed)
-        specs.append(dict(light_id=lid, ls1=l1, ls2=l2, ls3=ls3, bs1=b1,
-                          bs2=b2, bcs=bc, static_kind=kind))
-    return common.estimate_direct_multi(scene, specs, p, ns, wo, bsdf, alive)
-
-
-def _path_ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce, seed,
-             alive):
-    """Direct lighting for path mode: one light per lane with MIS
-    (path_wavefront.py:296-306)."""
-    u_num = smp.integrator_1d(cfg, px, py, s_idx, bounce, 10, seed)
-    ls1, ls2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 11, seed)
-    bs1, bs2 = smp.integrator_2d(cfg, px, py, s_idx, bounce, 12, seed)
-    bcs = smp.integrator_1d(cfg, px, py, s_idx, bounce, 13, seed)
-    ls3 = rng.uniform(ph, s_idx, bounce, 16)
-    return common.uniform_sample_one_light(scene, p, ns, wo, bsdf, u_num,
-                                           ls1, ls2, ls3, bs1, bs2, bcs,
-                                           alive)
-
-
-def _whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce, alive):
-    """Whitted direct lighting (path_wavefront.py:146-178): every light,
-    one sample each, no MIS, streams rng.uniform(ph, s_idx, bounce, i,
-    1..3); all the lights' shadow rays resolved in one batched_visibility
-    call, every segment "any"."""
-    samples, segs = [], []
-    for i in range(scene.lights.count):
-        lid = torch.full(p.shape[:-1], i, dtype=torch.int32, device=p.device)
-        sm = lt.sample(scene, lid, p, ns, rng.uniform(ph, s_idx, bounce, i, 1),
-                       rng.uniform(ph, s_idx, bounce, i, 2),
-                       rng.uniform(ph, s_idx, bounce, i, 3))
-        f_val = B.f(bsdf, wo, sm["wi"])
-        need = alive & (sm["pdf"] > 0.0) & \
-            ~torch.all(sm["Li"] == 0.0, dim=-1) & \
-            ~torch.all(f_val == 0.0, dim=-1)
-        samples.append((sm, f_val, need))
-        # Provably-zero lanes get degenerate rays (mint 1 > maxt -1).
-        segs.append((p, sm["wi"], torch.where(need, _EPS, 1.0),
-                     torch.where(need, sm["vis_maxt"], -1.0)))
-    Ld = torch.zeros_like(p)
-    if not segs:
-        return Ld
-    vis = common.batched_visibility(scene, segs, ["any"] * len(segs))
-    for (sm, f_val, need), occ in zip(samples, vis):
-        contrib = f_val * sm["Li"] * (
-            vm.absdot(sm["wi"], ns) /
-            torch.clamp(sm["pdf"], min=1e-20))[..., None]
-        Ld = Ld + torch.where((need & ~occ)[..., None], contrib, 0.0)
-    return Ld
-
-
 def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
           xres, yres, xstart, xcount, ystart, spp, filter_kind,
-          filter_xwidth, filter_ywidth, mode, maps=None, prm=None):
+          filter_xwidth, filter_ywidth, mode, strategy="all", sel=None,
+          maps=None, prm=None):
     """One wavefront pass (path_wavefront.py:181-420) in `mode` ("path",
-    "directlighting", "whitted" or "photonmap", whose PhotonMaps and
+    "directlighting" with its `strategy` and, for "weighted", the light
+    distribution `sel`, "whitted" or "photonmap", whose PhotonMaps and
     PhotonParams are `maps` and `prm`): bounce every live lane once, splat +
     regenerate finished lanes. Returns (state, cursor)."""
     alive = st["alive"]
@@ -178,14 +118,16 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     wo = -rd
     if scene.lights.count > 0:
         if mode == "whitted":
-            Ld = _whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce, alive)
+            Ld = common.whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce,
+                                   alive)
         elif mode == "photonmap":
             Ld = photonmap.photon_radiance(scene, maps, prm, bsdf, wo, p, ns,
                                            alive, ph, s_idx, bounce)
         else:
-            ld = _path_ld if path else _direct_ld
-            Ld = ld(scene, cfg, p, ns, wo, bsdf, ph, px, py, s_idx, bounce,
-                    seed, alive)
+            # Path mode samples one light uniformly (path.cpp:99-110).
+            Ld = common.direct_ld(scene, cfg, "one" if path else strategy,
+                                  sel, p, ns, wo, bsdf, ph, px, py, s_idx,
+                                  bounce, seed, alive)
         L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
 
     if path:
@@ -295,9 +237,15 @@ def render(scene: SceneData, opts, device, maps=None):
     first when none are given (path_wavefront.py:541-545)."""
     if opts.integrator not in SALTS:
         raise NotImplementedError(
-            f'integrator "{opts.integrator}" is not ported (path, whitted, '
-            'photonmap, and directlighting with strategy "all")')
+            f'integrator "{opts.integrator}" has no wavefront pool (path, '
+            'directlighting, whitted and photonmap have)')
     lt.check(scene.lights)    # once per render: it reads a table
+    strategy = opts.direct_strategy
+    # "weighted" picks by the lights' power, its distribution built once a
+    # render (tpuprt builds it at every pass, with the same result).
+    sel = common.weighted_selection(scene) \
+        if strategy == "weighted" and opts.integrator == "directlighting" \
+        else None
     prm = None
     if opts.integrator == "photonmap":
         prm = opts.photon or photonmap.PhotonParams()
@@ -323,8 +271,8 @@ def render(scene: SceneData, opts, device, maps=None):
                            filter_kind=opts.filter_kind,
                            filter_xwidth=opts.filter_xwidth,
                            filter_ywidth=opts.filter_ywidth,
-                           mode=opts.integrator, maps=maps, prm=prm,
-                           **kw)
+                           mode=opts.integrator, strategy=strategy, sel=sel,
+                           maps=maps, prm=prm, **kw)
         if not bool(st["alive"].any()):
             break
     rgb, alpha = film_mod.develop(film)

@@ -19,9 +19,10 @@ photonmap.cpp).
 - photon_radiance: Li's non-recursive core (photonmap.cpp:315-364): all
   lights' direct lighting (or the direct map), the caustic map, and the
   indirect map or the final gather; the pool's mode "photonmap" calls it
-  at every vertex (integrators/path_wavefront.py).
+  at every vertex (integrators/path_wavefront.py), and so does li, the
+  scan form of the chunked driver (photonmap.py:469-528).
 
-tpuprt's chunked scan form of Li (li) is not ported. The gather's width (lanes x
+The gather's width (lanes x
 gather samples at once) and the lookup's point blocks are sized from the
 device's free memory; tpuprt's TPU caps on both change no result, as every
 stream is keyed by (pixel, sample, depth, gather index).
@@ -398,3 +399,22 @@ def photon_radiance(scene: SceneData, maps: PhotonMaps, prm: PhotonParams,
         Lg = Lg + torch.where(gok[..., None], contrib, 0.0).reshape(
             n_rays, Gb, 3).sum(1)
     return Lsum + Lg / float(G)
+
+
+def li(scene: SceneData, maps: PhotonMaps, o, d, mint, maxt, cfg, px, py,
+       s_idx, max_depth: int = 5, seed: int = 0,
+       prm: PhotonParams = PhotonParams(), rx=None, ry=None):
+    """Li's scan form (photonmap.py:469-528; photonmap.cpp:299-431) through
+    the chunked driver's loop (common.scan_li): Le at every hit,
+    photon_radiance at every vertex, the specular-only continuation.
+    Returns (L, alpha, t_first)."""
+    ph = rng.hash_u32(px, py, seed, 0x9B1)
+
+    def shade(depth, idx, ph_l, s_l, dg, bsdf, wo, tp):
+        live = torch.ones_like(s_l, dtype=torch.bool)
+        yield tp * photon_radiance(scene, maps, prm, bsdf, wo, dg["p"],
+                                   bsdf.nn, live, ph_l, s_l,
+                                   torch.full_like(s_l, depth))
+
+    return common.scan_li(scene, o, d, mint, maxt, rx, ry, ph, s_idx,
+                          max_depth + 1, max_depth, shade)

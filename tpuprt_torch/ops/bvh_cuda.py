@@ -10,7 +10,10 @@ table (`traverse_rows`) or an instanced aggregate's prototype blocks
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) only for CPU tensors: there is no fallback from one to
 the other. The kernels are compiled with nvcc at first use into
-``tpuprt_torch/_build/`` and bound through ctypes.
+``tpuprt_torch/_build/`` and bound through ctypes. Under autograd each
+wrapper is a `nondiff` function: its outputs carry no gradient, and the
+callers recompute the winners' t from live tables, as tpuprt detaches
+its walks (accel/bvh.py:69-72).
 """
 from __future__ import annotations
 
@@ -79,6 +82,33 @@ def _instanced_entry():
                   _P, _P])
 
 
+class NonDiff(torch.autograd.Function):
+    """A kernel's wrapper under autograd (tpuprt's custom_vjp of mt_best,
+    mt_pallas.py:159-179, and the stop_gradients around its walks):
+    forward runs fn(*args, **kw) with autograd off, its outputs are marked
+    non-differentiable, and backward gives no input a gradient."""
+
+    @staticmethod
+    def forward(ctx, fn, kw, *args):
+        ctx.n_args = len(args)
+        out = fn(*args, **kw)
+        ctx.mark_non_differentiable(*out)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * (2 + ctx.n_args)
+
+
+def nondiff(fn):
+    """fn, returning a tuple of tensors, as a NonDiff call: its outputs
+    carry no gradient to or from any of its arguments."""
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        return NonDiff.apply(fn, kw, *args)
+    return call
+
+
 def _check_tensors(dev, *specs):
     """Each (name, tensor, dtype) on `dev`, of that dtype, contiguous."""
     for name, x, dt in specs:
@@ -132,6 +162,7 @@ def _check(nodesT, nodeskip, nodemeta, child, rays, nn):
     _check_rays(rays)
 
 
+@nondiff
 def traverse_tiles(nodesT, nodeskip, nodemeta, child, rays, *, nn: int,
                    any_hit: bool = False):
     """Nearest (or any) hit of packed rays f32[8,N] against the tile-format
@@ -278,6 +309,7 @@ def rows_stack_scratch(max_depth: int, n: int, device):
     return torch.empty((extra, n), dtype=torch.int32, device=device)
 
 
+@nondiff
 def traverse_rows(nodes, rays, *, nn: int, max_depth: int,
                   any_hit: bool = False):
     """Nearest (or any) hit of packed rays f32[8,N] against the row-format
@@ -426,6 +458,7 @@ def traverse_rows_ref(nodes, rays, *, nn: int, any_hit: bool = False,
     return t, ids
 
 
+@nondiff
 def traverse_instanced(nodes, entry_block, entry_inst, entry_start,
                        entry_stop, entry_bbox, w2o12, rays, *, cap: int,
                        top, any_hit: bool = False):
@@ -615,7 +648,8 @@ def intersect(bvh, o, d, mint, maxt, any_hit: bool = False,
     """Traversal front end: (t_raw, prim_id, hit). Rays go to the kernel in
     sort-key order through one row gather of the packed [N, 8] rays, and
     the results come back to ray order by one scatter. The tile walk runs
-    when the BVH has tiles, the row walk otherwise (bvh_pallas.py:1295)."""
+    when the BVH has tiles, the row walk otherwise (bvh_pallas.py:1295).
+    t_raw carries no gradient."""
     rays8 = torch.cat([o, d, mint[:, None], maxt[:, None]], dim=1)
     order = None
     if sort:

@@ -72,11 +72,12 @@ def _check(rays, tris):
         raise ValueError("the kernel indexes triangles with 32-bit ints")
 
 
+@bvh_cuda.nondiff
 def mt_best(rays, tris, any_hit: bool = False):
     """Nearest hit of packed rays f32[8,N] over packed triangles f32[9,T]
     (pack_tris), or with any_hit the lowest-index hit. Returns (t f32[N],
-    1e30 = miss; id i32[N], -1 = miss). CUDA tensors launch the kernel;
-    CPU tensors run the plain version."""
+    1e30 = miss; id i32[N], -1 = miss), neither differentiable. CUDA
+    tensors launch the kernel; CPU tensors run the plain version."""
     _check(rays, tris)
     if rays.device.type == "cpu":
         return mt_best_ref(rays, tris, any_hit=any_hit)
@@ -185,33 +186,44 @@ def ray_order(box, o, d, mint, maxt):
     return torch.argsort(key, stable=True)
 
 
-def intersect_packed(tris, box, o, d, mint, maxt, any_hit: bool = False):
-    """Nearest hit over packed triangles f32[9,T]: (t f32[N], id i32[N],
-    hit bool[N]). With any_hit the kernel stops at each ray's lowest-index
-    hit: hit is the same mask, t and id are that hit's; those rays (shadow
-    batches, incoherent) go to mt_best in ray_order over `box` and the ids
-    come back to ray order. Nearest calls keep lane order: their rays come
-    coherent, and the sort cost more than it saved there (PERF.md). Then
-    the winner's t is recomputed through triangle.intersect_edges (the
-    steps of intersect_pairs, on the same edges) and a winner whose
-    recompute is invalid is dropped. Runs under no autograd of its own: the
-    winner's t is the differentiable recompute, the choice carries no
-    gradient."""
+def winners(tris, box, o, d, mint, maxt, any_hit: bool = False):
+    """Each ray's winning triangle id over packed triangles f32[9,T] by
+    mt_best, -1 = none. With any_hit the kernel stops at each ray's
+    lowest-index hit; those rays (shadow batches, incoherent) go to mt_best
+    in ray_order over `box` and the ids come back to ray order. Nearest
+    calls keep lane order: their rays come coherent, and the sort cost more
+    than it saved there (PERF.md)."""
     rays = torch.cat([o, d, mint[:, None], maxt[:, None]], dim=1)
     if any_hit:
         order = ray_order(box, o, d, mint, maxt)
         ids, = bvh_cuda.unsort(order, mt_best(
             rays[order].T.contiguous(), tris, any_hit=True)[1])
-    else:
-        ids = mt_best(rays.T.contiguous(), tris)[1]
-    hit = ids >= 0
-    if tris.shape[1] == 0:
-        return torch.full_like(mint, _BIG), ids, hit
-    w = tris[:, torch.clamp(ids, min=0).long()]
-    t_exact, _, _, v_exact = triangle.intersect_edges(
-        w[0:3].T, w[3:6].T, w[6:9].T, o, d, mint, maxt)
-    hit = hit & v_exact
+        return ids
+    return mt_best(rays.T.contiguous(), tris)[1]
+
+
+def recompute(ids, v0, e1, e2, o, d, mint, maxt):
+    """The winners' t through triangle.intersect_edges (the steps of
+    intersect_pairs) on the winners' vertex v0 and edges e1, e2 f32[N,3]:
+    (t f32[N], 1e30 = miss; id, -1 = miss; hit). A winner whose recompute
+    is invalid is dropped. t is differentiable in o, d, mint and the
+    vertices."""
+    t_exact, _, _, v_exact = triangle.intersect_edges(v0, e1, e2, o, d, mint,
+                                                      maxt)
+    hit = (ids >= 0) & v_exact
     return torch.where(hit, t_exact, _BIG), torch.where(hit, ids, -1), hit
+
+
+def intersect_packed(tris, box, o, d, mint, maxt, any_hit: bool = False):
+    """Nearest hit over packed triangles f32[9,T]: (t f32[N], id i32[N],
+    hit bool[N]): winners, then recompute on the packed rows of the
+    winners (with any_hit, hit is the same mask, t and id the kernel's
+    hit's). Gradients reach the triangles only through `tris`."""
+    ids = winners(tris, box, o, d, mint, maxt, any_hit)
+    if tris.shape[1] == 0:
+        return torch.full_like(mint, _BIG), ids, ids >= 0
+    w = tris[:, torch.clamp(ids, min=0).long()]
+    return recompute(ids, w[0:3].T, w[3:6].T, w[6:9].T, o, d, mint, maxt)
 
 
 def intersect_tris(p0, p1, p2, o, d, mint, maxt):

@@ -1,23 +1,33 @@
 """Render driver (port of tpuprt/render.py: RenderOptions, the routing to
-the regenerating wavefront pool, and the chunked driver).
+the regenerating wavefront pool, the chunked driver with its checkpoint,
+resume and writefrequency, and the Li dispatch).
 
-Path, directlighting, whitted and photonmap go to the pool
-(integrators/path_wavefront.py), as tpuprt's "auto" routes them; the port
-has no volumes (the parser raises on a Volume statement), so every
-photonmap scene goes there. igi, irradiancecache, bidirectional and
-exphotonmap go to the chunked driver (tpuprt/render.py:115-165, 246-330):
-the integrator's preprocess on the render's device, then chunks of
-(pixel, sample) ids, each camera rays with their +x/+y differential rays,
-the integrator's Li, the radiance guards and the film's splat. Checkpoint,
-resume and writefrequency are not ported.
+Routing (tpuprt/render.py:226-234), by `RenderOptions.driver`: "auto"
+sends path, directlighting, whitted and photonmap to the pool
+(integrators/path_wavefront.py) unless a checkpoint, a resume or a
+writefrequency is asked for, and every other integrator (debug, igi,
+irradiancecache, bidirectional, exphotonmap) to the chunked driver;
+"scan" sends every integrator to the chunked driver; "wavefront" forces
+the pool. The port has no volumes (the parser raises on a Volume
+statement), so every photonmap scene may take the pool.
 
-A chunk's lanes come from the device's free memory (tpuprt caps them for
-the TPU, exphotonmap's at 4096): every stream is keyed by (pixel, sample,
-depth, purpose), so the chunk changes no sample's result.
+The chunked driver (tpuprt/render.py:115-165, 246-330): the integrator's
+preprocess on the render's device, then chunks of (pixel, sample) ids,
+each camera rays with their +x/+y differential rays, the integrator's Li
+(li: the scan forms of every integrator), the radiance guards and the
+film's splat. A chunk's lanes come from the device's free memory (tpuprt
+caps them for the TPU, exphotonmap's at 4096): every stream is keyed by
+(pixel, sample, depth, purpose), so the chunk changes no sample's result.
+A render that writes or reads a checkpoint, or writes its partial image
+every `writefrequency` samples, chunks by `opts.chunk_size` instead, as
+tpuprt does: the checkpoint's chunk index is valid only at that size,
+which its fingerprint holds.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from typing import NamedTuple
 
@@ -27,15 +37,18 @@ import torch
 from .accel.photon_grid import block_rows
 from .cameras import cameras as cam_mod
 from .film import film as film_mod
-from .integrators import (bidirectional, exphotonmap, igi, irradiancecache,
-                          path_wavefront)
+from .integrators import (bidirectional, debug, directlighting, exphotonmap,
+                          igi, irradiancecache, path, path_wavefront,
+                          photonmap, whitted)
+from .io import exr
 from .lights import lights as lt
 from .ops import bvh_cuda, mt_cuda
 from .samplers import samplers as smp
 from .scene.data import BvhAccel, SceneData, to_device
 
-# The integrators the chunked driver renders.
-CHUNKED = ("igi", "irradiancecache", "bidirectional", "exphotonmap")
+# The integrators "auto" sends to the wavefront pool.
+POOL = ("path", "directlighting", "whitted", "photonmap")
+DRIVERS = ("auto", "scan", "wavefront")
 # Bytes a chunk's lane holds outside the blocks its integrator sizes
 # itself: its rays, hit record, BSDF, light samples and radiance.
 _LANE_BYTES = 16384
@@ -61,43 +74,76 @@ class RenderOptions(NamedTuple):
                                        # ExPhotonParams (exphotonmap)
     igi: tuple = ()                    # IgiParams when igi
     irrad: tuple = ()                  # IrradParams when irradiancecache
+    direct_strategy: str = "all"       # directlighting: all|one|weighted
+    debug_channels: tuple = ("u", "v", "hit")
+    # Re-write the partial image every this many samples (film/image.cpp:
+    # 142-146, the film's writefrequency), rounded up to whole chunks;
+    # <= 0: never.
+    writefrequency: int = -1
+    # "auto", "scan" (the chunked driver for every integrator) or
+    # "wavefront" (the pool); see the module's docstring.
+    driver: str = "auto"
 
 
 def render(scene: SceneData, opts: RenderOptions, device="cuda",
-           maps=None, aux=None, stats: dict = None):
+           maps=None, aux=None, stats: dict = None,
+           checkpoint_path: str = None, resume: bool = False):
     """Full-frame render on `device`: the card by default (the traversal
     kernels), or "cpu" on request (their plain versions). Without a CUDA
     device a render that did not ask for the CPU raises. Returns (rgb
     f32[yres,xres,3], alpha f32[yres,xres]) as numpy arrays. A photonmap
-    render shoots its photons and builds its maps on `device` before the
-    pool starts (tpuprt/render.py:262-267), unless `maps`
-    (integrators.photonmap.PhotonMaps) are given; a render of the chunked
-    driver runs its integrator's preprocess first unless `aux` (its
-    result) is given. stats, when given, receives the chunked driver's
-    preprocess seconds and the preprocess's own stats, and its chunks."""
+    render shoots its photons and builds its maps on `device` first
+    (tpuprt/render.py:262-267), unless `maps` (integrators.photonmap.
+    PhotonMaps) are given; a render of the chunked driver runs its
+    integrator's preprocess first unless `aux` (its result) is given.
+    stats, when given, receives the chunked driver's preprocess seconds,
+    the preprocess's own stats, and its chunks. checkpoint_path, resume:
+    the chunked driver saves the film and its next chunk there with each
+    partial image (writefrequency), and with resume starts from the
+    checkpoint found there (tpuprt/render.py:287-318)."""
+    require_device("render()", device)
+    if opts.driver not in DRIVERS:
+        raise ValueError(f"unknown driver {opts.driver!r}; one of {DRIVERS}")
+    scene = on_device(scene, device)
+    pool_ok = opts.integrator in POOL and checkpoint_path is None and \
+        not resume and not opts.writefrequency > 0
+    if opts.driver == "wavefront" or (opts.driver == "auto" and pool_ok):
+        kw = {} if maps is None else {"maps": to_device(maps, device)}
+        return path_wavefront.render(scene, opts, device, **kw)
+    return render_chunked(scene, opts, device,
+                          aux=maps if aux is None else aux, stats=stats,
+                          checkpoint_path=checkpoint_path, resume=resume)
+
+
+def require_device(caller: str, device):
+    """Raise when `device` is the card and there is none: an entry point
+    runs on the CPU only when its caller asks for it."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render(): no CUDA device; pass device=\"cpu\" "
-                           "to render with the plain versions")
+        raise RuntimeError(f"{caller}: no CUDA device; pass device=\"cpu\" "
+                           "to run the plain versions")
+
+
+def on_device(scene: SceneData, device) -> SceneData:
+    """The scene's tables on `device` as the renderer walks them: of a BVH
+    only the format the front end walks, and for the brute force the
+    dense kernel's triangles packed once (tris_packed)."""
     if isinstance(scene.accel, BvhAccel):
-        # Copy to the card only the BVH format the front end walks.
         scene = dataclasses.replace(scene,
                                     accel=bvh_cuda.walked_only(scene.accel))
     elif scene.accel is None and scene.triangles.count:
-        # Brute force: the dense kernel's triangles, packed once.
         scene = dataclasses.replace(
             scene, tris_packed=mt_cuda.pack_table(scene.triangles))
-    scene = to_device(scene, device)
-    if opts.integrator in CHUNKED:
-        return render_chunked(scene, opts, device, aux=aux, stats=stats)
-    kw = {} if maps is None else {"maps": to_device(maps, device)}
-    return path_wavefront.render(scene, opts, device, **kw)
+    return to_device(scene, device)
 
 
 def preprocess(scene: SceneData, opts: RenderOptions, stats: dict = None):
     """The chunked integrator's preprocess (Scene::Render -> Preprocess,
     core/scene.cpp:38; tpuprt/render.py:261-280) on the scene's device:
-    igi's virtual lights, the irradiance cache, or exphotonmap's maps and
-    radiance photons; None for bidirectional."""
+    photonmap's maps, igi's virtual lights, the irradiance cache, or
+    exphotonmap's maps and radiance photons; None for the others."""
+    if opts.integrator == "photonmap":
+        return photonmap.build_maps(scene, opts.photon or
+                                    photonmap.PhotonParams(), opts.seed)
     if opts.integrator == "igi":
         return igi.build_virtual_lights(scene, opts.igi or igi.IgiParams(),
                                         opts.seed)
@@ -113,21 +159,35 @@ def preprocess(scene: SceneData, opts: RenderOptions, stats: dict = None):
 
 
 def li(scene: SceneData, opts: RenderOptions, aux, o, d, mint, maxt, px,
-       py, s_idx, rx, ry):
-    """_li_dispatch (tpuprt/render.py:66-112) for the chunked integrators."""
-    if opts.integrator == "bidirectional":
-        return bidirectional.li(scene, o, d, mint, maxt, opts.sampler, px,
-                                py, s_idx, opts.max_depth, opts.seed, rx=rx,
-                                ry=ry)
+       py, s_idx, rx=None, ry=None):
+    """_li_dispatch (tpuprt/render.py:66-112): the scan form of
+    `opts.integrator`'s Li on camera rays (o, d, mint, maxt) with ids (px,
+    py, s_idx), its preprocess state `aux` and the +x/+y differential rays
+    rx, ry (or None). Returns (L, alpha, t_first)."""
+    integ, cfg = opts.integrator, opts.sampler
+    if integ == "debug":
+        return debug.li(scene, o, d, mint, maxt, opts.debug_channels)
+    if integ == "directlighting":
+        return directlighting.li(scene, o, d, mint, maxt, cfg, px, py, s_idx,
+                                 opts.max_depth, opts.seed,
+                                 opts.direct_strategy, rx=rx, ry=ry)
+    if integ in ("whitted", "path", "bidirectional"):
+        module = {"whitted": whitted, "path": path,
+                  "bidirectional": bidirectional}[integ]
+        return module.li(scene, o, d, mint, maxt, cfg, px, py, s_idx,
+                         opts.max_depth, opts.seed, rx=rx, ry=ry)
+    if integ not in ("photonmap", "igi", "irradiancecache", "exphotonmap"):
+        raise ValueError(f"unknown integrator {integ}")
     module, prm = {
+        "photonmap": (photonmap, opts.photon or photonmap.PhotonParams()),
         "igi": (igi, opts.igi or igi.IgiParams()),
         "irradiancecache": (irradiancecache,
                             opts.irrad or irradiancecache.IrradParams()),
         "exphotonmap": (exphotonmap,
                         opts.photon or exphotonmap.ExPhotonParams()),
-    }[opts.integrator]
-    return module.li(scene, aux, o, d, mint, maxt, opts.sampler, px, py,
-                     s_idx, opts.max_depth, opts.seed, prm, rx=rx, ry=ry)
+    }[integ]
+    return module.li(scene, aux, o, d, mint, maxt, cfg, px, py, s_idx,
+                     opts.max_depth, opts.seed, prm, rx=rx, ry=ry)
 
 
 def render_chunk(scene: SceneData, opts: RenderOptions, film, px, py, s_idx,
@@ -157,10 +217,53 @@ def chunk_lanes(device, total: int) -> int:
     return int(min(total, block_rows(device, _LANE_BYTES, 1 << 16)))
 
 
+def _render_fingerprint(opts: RenderOptions) -> str:
+    """The sample schedule a checkpoint belongs to (tpuprt/render.py:
+    174-180): resuming under another would blend wrong pixels."""
+    return repr((opts.xres, opts.yres, tuple(opts.crop), opts.seed,
+                 opts.sampler, opts.integrator, opts.max_depth,
+                 opts.filter_kind, opts.filter_xwidth, opts.filter_ywidth,
+                 opts.chunk_size))
+
+
+def save_checkpoint(path: str, film, next_chunk: int,
+                    opts: RenderOptions = None):
+    """The film's planes and the next chunk's index (tpuprt/render.py:
+    183-196), an .npz at `path`: deterministic streams make a resume from
+    that chunk redo exactly the work left."""
+    data = film.data.detach().cpu().numpy()
+    np.savez(path, pixels=data[..., 0:3], alpha=data[..., 3],
+             weight_sum=data[..., 4], next_chunk=np.int64(next_chunk),
+             fingerprint=np.array(
+                 _render_fingerprint(opts) if opts is not None else ""))
+
+
+def load_checkpoint(path: str, opts: RenderOptions, device="cuda"):
+    """(film on `device`, next_chunk) from save_checkpoint's file
+    (tpuprt/render.py:199-210); refuses one written under another sample
+    schedule."""
+    z = np.load(path)
+    saved = str(z["fingerprint"])
+    if saved and saved != _render_fingerprint(opts):
+        raise ValueError(
+            f"checkpoint {path} was written by a different render "
+            "configuration (resolution/sampler/seed/integrator...); "
+            "refusing to resume into it")
+    film = film_mod.from_planes(z["pixels"], z["alpha"], z["weight_sum"],
+                                opts.xres, opts.yres, opts.crop, device)
+    return film, int(z["next_chunk"])
+
+
 def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
-                   stats: dict = None):
-    """The chunked driver (tpuprt/render.py:246-330, without checkpoints or
-    writefrequency) on a scene whose tables live on `device`."""
+                   stats: dict = None, checkpoint_path: str = None,
+                   resume: bool = False):
+    """The chunked driver (tpuprt/render.py:246-330) on a scene whose
+    tables live on `device`: chunks sized from free memory, or by
+    opts.chunk_size when a checkpoint, a resume or a writefrequency is
+    asked for; every `writefrequency` samples (in whole chunks) but after
+    the last chunk, the partial image to opts.filename and, with
+    checkpoint_path, the checkpoint; with resume, the chunks after a
+    checkpoint found at checkpoint_path."""
     lt.check(scene.lights)    # once per render: it reads a table
     t0 = time.perf_counter()
     if aux is None:
@@ -175,16 +278,32 @@ def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)
     spp = smp.samples_per_pixel(opts.sampler)
     total = xcount * ycount * spp
-    chunk = chunk_lanes(device, total)
-    for base in range(0, total, chunk):
-        lin = torch.arange(base, min(base + chunk, total), device=device)
+    fixed = checkpoint_path is not None or resume or opts.writefrequency > 0
+    chunk = min(opts.chunk_size, total) if fixed else \
+        chunk_lanes(device, total)
+    n_chunks = math.ceil(total / chunk)
+    start = 0
+    if resume and checkpoint_path is not None and \
+            os.path.exists(checkpoint_path):
+        film, start = load_checkpoint(checkpoint_path, opts, device)
+    write_every = math.ceil(opts.writefrequency / chunk) \
+        if opts.writefrequency > 0 else 0
+    for c in range(start, n_chunks):
+        lin = torch.arange(c * chunk, min((c + 1) * chunk, total),
+                           device=device)
         pix = lin // spp
         render_chunk(scene, opts, film,
                      (xstart + pix % xcount).to(torch.int32),
                      (ystart + pix // xcount).to(torch.int32),
                      (lin % spp).to(torch.int32), aux)
+        if write_every and (c + 1) % write_every == 0 and c + 1 < n_chunks:
+            rgb_p, alpha_p = film_mod.develop(film)
+            exr.write_exr(opts.filename, rgb_p.cpu().numpy(),
+                          alpha_p.cpu().numpy())
+            if checkpoint_path is not None:
+                save_checkpoint(checkpoint_path, film, c + 1, opts)
     if stats is not None:
-        stats.update(chunks=-(-total // chunk), chunk_lanes=chunk)
+        stats.update(chunks=n_chunks - start, chunk_lanes=chunk)
     rgb, alpha = film_mod.develop(film)
     if opts.half_readback:
         rgb, alpha = film_mod.to_half(rgb, alpha)

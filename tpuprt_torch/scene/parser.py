@@ -652,7 +652,7 @@ class PbrtParser:
                 f'pixel filter "{self.filter_name}" is not ported')
         fw = DEFAULT_WIDTHS[self.filter_name]
         if self.integrator_name not in (
-                "directlighting", "path", "whitted", "photonmap",
+                "directlighting", "path", "whitted", "debug", "photonmap",
                 "exphotonmap", "igi", "irradiancecache", "bidirectional"):
             raise NotImplementedError(
                 f'integrator "{self.integrator_name}" is not ported')
@@ -704,6 +704,7 @@ class PbrtParser:
             integrator=self.integrator_name,
             max_depth=self.integrator_params.find_one("maxdepth", 5),
             filename=fp.find_one("filename", "pbrt.exr"), crop=crop,
+            writefrequency=fp.find_one("writefrequency", -1),
             photon=photon, igi=igi_p, irrad=irrad)
         return self.builder.build(), opts
 

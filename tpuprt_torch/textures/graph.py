@@ -298,13 +298,22 @@ def mipmap_lookup_tri(images, img: int, s, t, width):
     return (1.0 - dl) * tap[0] + dl * tap[1]
 
 
+def _length2(a, b):
+    """sqrt(a^2 + b^2), with a zero (not NaN) gradient where both are 0
+    (no ray differentials): the sqrt's input is kept off 0 in the branch
+    that where() discards."""
+    sq = a * a + b * b
+    return torch.where(sq > 0.0, torch.sqrt(torch.where(sq > 0.0, sq, 1.0)),
+                       0.0)
+
+
 def mipmap_lookup_ewa(images, img: int, s, t, ds0, dt0, ds1, dt1,
                       max_anisotropy=8.0):
     """tpuprt's anisotropic lookup: the minor axis (clamped to major /
     max_anisotropy) picks the level, four trilinear taps spread along the
     major axis are averaged."""
-    d0 = torch.sqrt(ds0 * ds0 + dt0 * dt0)
-    d1 = torch.sqrt(ds1 * ds1 + dt1 * dt1)
+    d0 = _length2(ds0, dt0)
+    d1 = _length2(ds1, dt1)
     major = torch.maximum(d0, d1)
     minor = torch.maximum(torch.minimum(d0, d1), major / max_anisotropy)
     maj_s = torch.where(d0 >= d1, ds0, ds1)
