@@ -171,6 +171,31 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    [0.3 0.3 0.3]: mt_best against its plain version's route within rtol
    1e-4, autograd against a central difference (eps 1e-3) within 5%, 10
    Adam steps halve the loss.
+32. boundary -- render_loss_with_silhouette (diff/silhouette.py) on the
+   card: tests/test_grad.py's four finite-difference scenes at 256x256
+   (a black quad before an infinite light: the primary term; a quad out
+   of frame shadowing a floor from a point light and from a quad area
+   light; a black sphere's rim) and a fifth, the floor shadowed from a
+   distant light (the shadow term's distant branch), each gradient in
+   the translation within that test's tolerance of the central
+   difference (10%, 10%, 25%, 10%; the point light's 10% for the
+   distant one) and of its sign, the case's term with live edge samples,
+   mt_best launched (the sphere's scene has no triangle). Then
+   grad/config4_big at 512x512 x 1 spp in a per-vertex translation with
+   the boundary terms over the terrain's 149,633 edges and without:
+   seconds a step, peak device memory, launches a step by mode, live
+   edge samples a step by term (the primary term's required; the
+   distant light's shadow term has none there: no terrain face turns
+   from the sun, and the border edges' casts leave the terrain); the
+   value unchanged; the boundary gradient through the tile walk and
+   through its plain version within rtol 1e-4.
+33. shard -- render_sharded of config4_big at 512x512 x 4 spp over a
+   world of 1 (multihost.init_distributed, NCCL) against render_chunked,
+   and from a world of 2 processes sharing the card (gloo, spawned here)
+   against the world of 1, within 1e-5; train_step_sharded with the
+   boundary terms on the point-light shadow scene at 256x256, 2 ranks
+   against 1 within 1e-5 relative (loss and vertex gradient). Walls,
+   first and warm, of both worlds.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -349,6 +374,22 @@ FD4_TOL, FD4_EPS, FD3_TOL, FD3_EPS = 0.02, 1e-2, 0.05, 1e-3
 ADAM_STEPS, ADAM_LR = 10, 0.05
 BENCH3_KD = (0.65, 0.05, 0.05)    # the red wall, scenes/bench3.pbrt:24
 BENCH3_KD0 = (0.3, 0.3, 0.3)      # where Adam starts
+
+# Phases 32-33, the boundary gradients and several devices.
+BOUNDARY_RES = 256        # the FD scenes' film (the tests: 48, 64)
+# tests/test_grad.py's four FD cases (:119-179, :456-512) and the point
+# shadow's scene under a distant light: the terms, spp, the target's
+# shift, edge samples, seed, the central difference's step and the
+# tolerance on |autograd - FD| / |FD|.
+BOUNDARY_FD = {
+    "occluder": (("primary",), 4, 0.2, 4096, 3, 1e-1, 0.10),
+    "point_shadow": (("shadow",), 1, 0.25, 4096, 5, 5e-2, 0.10),
+    "distant_shadow": (("shadow",), 1, 0.25, 4096, 5, 5e-2, 0.10),
+    "area_shadow": (("area",), 4, 0.25, 4096, 5, 5e-2, 0.25),
+    "sphere_rim": (("rim",), 1, 0.15, 2048, 7, 5e-2, 0.10),
+}
+BOUNDARY_STEPS = 3        # config4_big's timed steps, each kind
+SHARD_TOL = 1e-5          # sharded against single-device results
 
 
 def write_lit_maps(d, small=1):
@@ -2275,6 +2316,327 @@ def grad_phases(device, launches, res4=None, res3=None):
                 [(0, (0,), FD3_EPS)], FD3_TOL, (0,), launches)
 
 
+
+def fd_case(name, device, res):
+    """tests/test_grad.py's finite-difference scene `name` at res x res:
+    (scene on `device`, opts, sample ids, moved(scene, cx), the target's
+    cx, its BOUNDARY_FD row). Built with the port's builder, as the test
+    builds tpuprt's."""
+    import numpy as np
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.cameras import cameras as cam
+    from tpuprt_torch.core import transform as tf
+    from tpuprt_torch.samplers.samplers import SamplerConfig
+    from tpuprt_torch.scene.build import SceneBuilder
+    terms, spp, cx_t, n_edge, seed, eps, tol = BOUNDARY_FD[name]
+    b = SceneBuilder()
+    dark = b.matte(kd=(0.0, 0.0, 0.0))
+    rows = None
+    if name == "occluder":
+        # A black quad tilted 15 degrees in its plane (test_grad.py:137).
+        c, s = np.cos(0.26), np.sin(0.26)
+        sq = np.asarray([[-0.6, -0.6], [0.6, -0.6], [0.6, 0.6],
+                         [-0.6, 0.6]], np.float32) @ np.asarray(
+                             [[c, s], [-s, c]], np.float32)
+        b.add_trianglemesh(np.eye(4), [[0, 1, 2], [0, 2, 3]],
+                           np.concatenate([sq, np.ones((4, 1), np.float32)],
+                                          axis=1), material=dark)
+    elif name == "sphere_rim":
+        b.add_sphere(np.eye(4), 0.8, material=dark)
+        rows = "sphere"
+    else:
+        fl, grey = b.matte(kd=(0.7, 0.7, 0.7)), b.matte(kd=(0.2, 0.2, 0.2))
+        b.add_trianglemesh(np.eye(4), [[0, 1, 2], [0, 2, 3]], np.asarray(
+            [[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]], np.float32),
+            material=fl)
+        b.add_trianglemesh(np.eye(4), [[0, 1, 2], [0, 2, 3]], np.asarray(
+            [[-0.5, 1.5, -0.5], [0.5, 1.5, -0.5], [0.5, 1.5, 0.5],
+             [-0.5, 1.5, 0.5]], np.float32), material=grey)
+        rows = [4, 5, 6, 7]
+        if name == "point_shadow":
+            b.add_point_light(tf.translate([0.0, 4.0, 0.0]), (25.0,) * 3)
+        elif name == "distant_shadow":
+            # Its shadow rays end at |light origin - p| (lights.py), so the
+            # origin sits beyond the occluder.
+            b.add_distant_light(tf.translate([0.0, 10.0, 0.0]), (3.0,) * 3,
+                                frm=(0.3, 4.0, 0.2), to=(0.0, 0.0, 0.0))
+        else:
+            lid = b.add_trianglemesh(np.eye(4), [[0, 1, 2], [0, 2, 3]],
+                                     np.asarray([[-0.6, 4, -0.6],
+                                                 [0.6, 4, -0.6],
+                                                 [0.6, 4, 0.6],
+                                                 [-0.6, 4, 0.6]],
+                                                np.float32), material=grey)
+            b.add_area_light_mesh(lid, L=(14.0,) * 3)
+    if rows is None or rows == "sphere":
+        b.add_infinite_light(np.eye(4), L=(1.0, 1.0, 1.0))
+        eye, at, fov = [0, 0, -4], [0, 0, 0], 45.0
+    else:
+        eye, at, fov = [0, 0.8, -2.8], [0, 0, 0.3], 32.0
+    b.set_camera(cam.build_projective(
+        0, tf.look_at(eye, at, [0, 1, 0]), tf.perspective(fov, 1e-2, 100.0),
+        cam.default_screen_window(res, res), res, res))
+    scene = R.on_device(b.build(), device)
+    sampler = SamplerConfig(kind="stratified", xsamples=1, ysamples=1,
+                            jitter=False) if spp == 1 else \
+        SamplerConfig(kind="lowdiscrepancy", pixelsamples=spp)
+    opts = R.RenderOptions(
+        xres=res, yres=res, sampler=sampler, filter_kind="box",
+        filter_xwidth=0.5, filter_ywidth=0.5,
+        integrator="whitted" if rows in (None, "sphere") else
+        "directlighting", max_depth=0, chunk_size=res * res * spp)
+
+    def moved(sc, cx):
+        if rows == "sphere":
+            q = sc.quadrics
+            o2w, w2o = q.o2w.clone(), q.w2o.clone()
+            o2w[0, 0, 3] = o2w[0, 0, 3] + cx
+            w2o[0, 0, 3] = w2o[0, 0, 3] - cx
+            return dataclasses.replace(sc, quadrics=dataclasses.replace(
+                q, o2w=o2w, w2o=w2o))
+        v = sc.triangles.verts
+        m = torch.zeros_like(v)
+        m[slice(None) if rows is None else rows, 0] = 1.0
+        return dataclasses.replace(sc, triangles=dataclasses.replace(
+            sc.triangles, verts=v + m * cx))
+    lin = torch.arange(res * res * spp, device=device)
+    ids = [(lin // spp % res).to(torch.int32),
+           (lin // spp // res).to(torch.int32), (lin % spp).to(torch.int32)]
+    return scene, opts, ids, moved, cx_t, BOUNDARY_FD[name]
+
+
+def boundary_phases(device, launches, res=None, res4=None):
+    """Phase 32: the boundary gradients on the card. The five
+    finite-difference cases at BOUNDARY_RES (res on the CPU) and
+    grad/config4_big with the boundary terms (res4 on the CPU)."""
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.diff import silhouette as sil
+    from tpuprt_torch.parallel import shard
+    from tpuprt_torch.scene.parser import load_scene_string
+    res = res or BOUNDARY_RES
+    for name in BOUNDARY_FD:
+        scene, opts, ids, moved, cx_t, row = fd_case(name, device, res)
+        terms, spp, _, n_edge, seed, eps, tol = row
+        target = torch.from_numpy(R.render(moved(scene, cx_t), opts._replace(
+            driver="scan"), device=device)[0]).to(device)
+
+        def loss(cx):
+            return sil.render_loss_with_silhouette(
+                moved(scene, cx), opts, *ids, target, n_edge_samples=n_edge,
+                seed=seed, terms=terms, device=device)
+
+        def grad():
+            cx = torch.zeros((), device=device, requires_grad=True)
+            return float(torch.autograd.grad(loss(cx), cx)[0])
+        sil.live_lanes.update(dict.fromkeys(sil.TERMS, 0))
+        g, counts, grad_s, peak = counted(device, grad)
+        live = dict(sil.live_lanes)
+        with torch.no_grad():
+            fd = (float(loss(eps)) - float(loss(-eps))) / (2 * eps)
+        # The sphere's scene has no triangle: its rays meet the quadric by
+        # plain torch, no kernel.
+        need = {"area_shadow": ["mt_best", "mt_best_any"],
+                "sphere_rim": []}.get(name, ["mt_best"])
+        if unlaunched(device, counts, need):
+            raise AssertionError(f"boundary/{name}: launched no {need}")
+        launches[f"boundary/{name}"] = counts
+        emit(phase="boundary", scene=name, res=res, terms=list(terms),
+             n_edge_samples=n_edge, seed=seed, autograd=g, fd=fd, eps=eps,
+             rel=abs(g - fd) / abs(fd), tol=tol, grad_s=grad_s,
+             peak_device_bytes=peak, launches=counts, live_lanes=live)
+        assert all(live[t] > 0 for t in terms), (name, live)
+        assert fd < 0 and g < 0 and abs(g - fd) < tol * abs(fd), (name, g,
+                                                                  fd)
+    # grad/config4_big at 1 spp with the boundary terms over the terrain's
+    # edges: the primary term's samples live; the distant light's shadow
+    # term runs and has none (no face turns from the sun; the border
+    # edges' casts leave the terrain), which live_lanes shows.
+    with open(SCENE) as f:
+        c4, o4 = load_scene_string(film_text(f.read(), res4, 1))
+    o4 = o4._replace(driver="scan")
+    target = torch.from_numpy(R.render(c4, o4, device=device)[0]).to(device)
+    sc = R.on_device(c4, device)
+    t0 = time.perf_counter()
+    topo = sil.mesh_edges(sc.triangles.idx.cpu().numpy())
+    edges_s = time.perf_counter() - t0
+    ids = loss_ids(o4, device)
+    shift0 = torch.zeros_like(sc.triangles.verts)
+
+    def grads(boundary):
+        shift = shift0.clone().requires_grad_(True)
+        s = dataclasses.replace(sc, triangles=dataclasses.replace(
+            sc.triangles, verts=sc.triangles.verts + shift))
+        if boundary:
+            loss = sil.render_loss_with_silhouette(
+                s, o4, *ids, target, topology=topo, device=device)
+        else:
+            loss = shard.render_loss_fn(s, o4, *ids, target, device=device)
+        return loss.item(), torch.autograd.grad(loss, shift)[0]
+    steps = {}
+    for boundary in (False, True):
+        sil.live_lanes.update(dict.fromkeys(sil.TERMS, 0))
+        out, counts, wall, peak = counted(device, lambda: [
+            grads(boundary) for _ in range(BOUNDARY_STEPS)])
+        if unlaunched(device, counts, ["bvh_tiles", "bvh_tiles_any"]):
+            raise AssertionError("grad/config4_big: the tile walk idle")
+        steps[boundary] = dict(s_per_step=wall / BOUNDARY_STEPS,
+                               peak_device_bytes=peak,
+                               launches_per_step={
+                                   k: v / BOUNDARY_STEPS
+                                   for k, v in counts.items() if v},
+                               live_lanes_per_step={
+                                   k: v / BOUNDARY_STEPS
+                                   for k, v in sil.live_lanes.items()},
+                               loss=out[0][0], grad=out[0][1])
+    launches["grad/config4_big/boundary"] = {
+        k: int(v) for k, v in steps[True]["launches_per_step"].items()}
+    g_kernel, g_interior = steps[True]["grad"], steps[False]["grad"]
+    with patched(*plain_route("bvh_tiles")):
+        _, g_plain = grads(True)
+    if not (torch.isfinite(g_kernel).all() and torch.isfinite(g_plain).all()):
+        raise AssertionError("grad/config4_big/boundary: not finite")
+    err = float((g_kernel - g_plain).abs().max())
+    scale = float(g_plain.abs().max())
+    boundary_part = float((g_kernel - g_interior).abs().max())
+    emit(phase="boundary", scene="config4_big", res=o4.xres, spp=1,
+         triangles=sc.triangles.count, edges=len(topo[0]),
+         mesh_edges_s=edges_s, steps=BOUNDARY_STEPS,
+         interior={k: v for k, v in steps[False].items() if k != "grad"},
+         boundary={k: v for k, v in steps[True].items() if k != "grad"},
+         route_max_abs_diff=err, route_max_abs=scale, route_rtol=ROUTE_RTOL,
+         boundary_part_max_abs=boundary_part)
+    # The value is the interior loss, up to the rounding of adding and
+    # taking off the surrogate (tests/test_grad.py:544's 1e-5).
+    assert abs(steps[True]["loss"] - steps[False]["loss"]) < 1e-5, steps
+    assert err <= ROUTE_RTOL * scale and boundary_part > 0, (err, scale)
+    assert steps[True]["live_lanes_per_step"]["primary"] > 0, steps[True]
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_work(mesh, device, res4, res):
+    """What each world of phase 33 computes: render_sharded of config4_big
+    (res4 on the CPU) twice and train_step_sharded with the boundary terms
+    on the point-light shadow scene (res on the CPU). Returns (rgb, alpha,
+    the renders' walls, the first's launches, loss, the vertices' gradient
+    as numpy)."""
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.parallel import shard
+    from tpuprt_torch.scene.parser import load_scene_string
+    with open(SCENE) as f:
+        c4, o4 = load_scene_string(film_text(f.read(), res4))
+    o4 = o4._replace(chunk_size=1 << 17)
+    (rgb, alpha), counts, first, _ = counted(
+        device, lambda: shard.render_sharded(c4, o4, mesh))
+    wall = (first, counted(device, lambda: shard.render_sharded(
+        c4, o4, mesh))[2])
+    if unlaunched(device, counts, ["bvh_tiles"]):
+        raise AssertionError("render_sharded: the tile walk idle")
+    scene, opts, ids, moved, cx_t, row = fd_case("point_shadow", device,
+                                                 res or BOUNDARY_RES)
+    target = torch.from_numpy(R.render(moved(scene, cx_t), opts._replace(
+        driver="scan"), device=device)[0])
+    loss, g = shard.train_step_sharded(
+        scene, opts, target, *ids, mesh, boundary=True,
+        n_edge_samples=row[3], seed=row[4])
+    return (rgb, alpha, wall, counts, float(loss),
+            g.triangles.verts.cpu().numpy())
+
+
+def shard_rank(rank, world, port, out, device, res4, res):
+    """One spawned rank of phase 33's world of 2: gloo, both ranks on
+    `device` (the one card), its results to out/rank{rank}.npz."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch.distributed as dist
+    from tpuprt_torch.parallel import multihost
+    mesh = multihost.init_distributed(f"localhost:{port}", world, rank,
+                                      backend="gloo", device=device)
+    rgb, alpha, wall, counts, loss, verts = shard_work(mesh, device, res4,
+                                                       res)
+    np.savez(os.path.join(out, f"rank{rank}.npz"), rgb=rgb, alpha=alpha,
+             wall=wall, loss=loss, verts=verts,
+             bvh_tiles=counts["bvh_tiles"])
+    dist.destroy_process_group()
+
+
+def shard_phase(device, launches, res4=None, res=None):
+    """Phase 33: render_sharded of config4_big over a world of 1 (NCCL on
+    the card) against render_chunked, a world of 2 processes sharing the
+    device (gloo, spawned here) against the world of 1, and
+    train_step_sharded with the boundary terms on 2 ranks against 1."""
+    import multiprocessing
+    import numpy as np
+    import torch.distributed as dist
+    from tpuprt_torch import render as R
+    from tpuprt_torch.parallel import multihost
+    from tpuprt_torch.scene.parser import load_scene_string
+    cuda = device != "cpu"
+    mesh = multihost.init_distributed(f"localhost:{free_port()}", 1, 0,
+                                      device=device)
+    try:
+        rgb1, alpha1, wall1, counts1, loss1, verts1 = shard_work(
+            mesh, device, res4, res)
+    finally:
+        dist.destroy_process_group()
+    launches["config4_big/shard"] = counts1
+    with open(SCENE) as f:
+        c4, o4 = load_scene_string(film_text(f.read(), res4))
+    chunked = R.render_chunked(R.on_device(c4, device), o4, device)
+    d_chunked = images_close("shard/1 vs render_chunked", (rgb1, alpha1),
+                             chunked, SHARD_TOL, SHARD_TOL)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [ctx.Process(target=shard_rank, args=(
+            r, 2, port, tmp, device, res4, res)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        spawn_wall = time.perf_counter() - t0
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"shard: the ranks exited {codes}")
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(2)]
+    d_two = [images_close(f"shard/2 rank {r} vs 1", (z["rgb"], z["alpha"]),
+                          (rgb1, alpha1), SHARD_TOL, SHARD_TOL)
+             for r, z in enumerate(ranks)]
+    scale = float(np.abs(verts1).max())
+    step = [dict(loss_rel=abs(float(z["loss"]) - loss1) / abs(loss1),
+                 grad_max_rel=float(np.abs(z["verts"] - verts1).max()) /
+                 scale) for z in ranks]
+    emit(phase="shard", scene="config4_big", res=o4.xres,
+         spp=o4.sampler.pixelsamples, one_rank=dict(
+             backend="nccl" if cuda else "gloo", walls_s=wall1,
+             launches=counts1, vs_render_chunked=d_chunked),
+         two_ranks=dict(backend="gloo", walls_s=[z["wall"].tolist()
+                                                 for z in ranks],
+                        bvh_tiles_launches=[int(z["bvh_tiles"])
+                                            for z in ranks],
+                        spawn_to_exit_s=spawn_wall, vs_one_rank=d_two),
+         train_step=dict(scene="point_shadow", res=res or BOUNDARY_RES,
+                         loss=loss1, vertex_grad_max_abs=scale,
+                         two_vs_one=step, rtol=SHARD_TOL), tol=SHARD_TOL)
+    assert scale > 0 and all(s["loss_rel"] <= SHARD_TOL and
+                             s["grad_max_rel"] <= SHARD_TOL
+                             for s in step), step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--exr", help="also keep config4_big's rendered image "
@@ -2747,6 +3109,11 @@ def main(argv=None):
     scan_phase(device, launches)
     grad_phases(device, launches)
     emit(phase="scan_grad", seconds=time.perf_counter() - t0)
+    # 32. The boundary gradients; 33. several devices.
+    t0 = time.perf_counter()
+    boundary_phases(device, launches)
+    shard_phase(device, launches)
+    emit(phase="boundary_shard", seconds=time.perf_counter() - t0)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -2788,6 +3155,13 @@ def main(argv=None):
                 launches["config4_big/scan"]["bvh_tiles"]
             entry["config4_big_grad_launches"] = \
                 launches["grad/config4_big"]["bvh_tiles"]
+            # The boundary step's (phase 32, per step) and the sharded
+            # render's over a world of 1 (phase 33), by mode.
+            for p in ("grad/config4_big/boundary", "config4_big/shard"):
+                key = p.replace("/", "_")
+                entry[f"{key}_launches"] = launches[p]["bvh_tiles"]
+                entry[f"{key}_launches_any_hit"] = \
+                    launches[p]["bvh_tiles_any"]
             entry["config5_huge_launches"] = \
                 launches["config5_huge"]["bvh_tiles"]
             # The lights and textures path (phase 26) and its sets.
@@ -2836,7 +3210,15 @@ def main(argv=None):
                     "bound_by")} for r in rs if r["set"].startswith(
                         tuple(GI_GOLDEN))},
                 # The mesh emitter's sets (phase 27).
-                light_sets=light_sets(rs, "bench3/meshlight/"))
+                light_sets=light_sets(rs, "bench3/meshlight/"),
+                # One boundary gradient of each FD scene (phase 32), by
+                # mode.
+                boundary_launches={
+                    p[len("boundary/"):]: {
+                        "nearest": launches[p]["mt_best"] -
+                        launches[p]["mt_best_any"],
+                        "any": launches[p]["mt_best_any"]}
+                    for p in launches if p.startswith("boundary/")})
         kernels.append(entry)
     emit(kernels=kernels,
          library_note="no PyTorch call computes a BVH walk or a nearest "

@@ -118,7 +118,9 @@ def test_port_imports_no_jax():
             "tpuprt_torch.integrators.irradiancecache, "
             "tpuprt_torch.integrators.exphotonmap, "
             "tpuprt_torch.integrators.bidirectional, "
-            "tpuprt_torch.core.spectrum; "
+            "tpuprt_torch.core.spectrum, tpuprt_torch.core.jrandom, "
+            "tpuprt_torch.diff.silhouette, tpuprt_torch.parallel.shard, "
+            "tpuprt_torch.parallel.multihost; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

@@ -266,10 +266,14 @@ def estimate_direct_multi(scene: SceneData, specs, p, n, wo,
                     use_hit_pdf = use_hit_pdf | (
                         (geom == AREA_GEOM_QUADRIC) &
                         (q.kind[qid] != QUADRIC_SPHERE))
-                lpdf2 = torch.where(on_light & use_hit_pdf,
-                                    lt.pdf_area_from_hit(scene, light_id, p,
-                                                         wi2, dg2["p"],
-                                                         dg2["nn"]), lpdf2)
+                # A lane off the light takes a finite stand-in hit (p +
+                # wi2): a miss's far hit point would make the pdf's
+                # backward 0 * inf = NaN (tpuprt's gradient is NaN there).
+                use = on_light & use_hit_pdf
+                lpdf2 = torch.where(use, lt.pdf_area_from_hit(
+                    scene, light_id, p, wi2,
+                    torch.where(use[..., None], dg2["p"], p + wi2),
+                    dg2["nn"]), lpdf2)
             else:
                 esc = ~vis[rec["seg2"]] & is_inf
                 Li2 = torch.where(esc[..., None],

@@ -39,8 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 # Kernel launches by kernel name, counted by the wrappers where they launch
-# (plain integers; callers may reset them).
-launches = {"bvh_tiles": 0, "bvh_rows": 0, "bvh_instanced": 0}
+# (plain integers; callers may reset them); bvh_tiles_any counts the tile
+# walk's any-hit launches among bvh_tiles'.
+launches = {"bvh_tiles": 0, "bvh_tiles_any": 0, "bvh_rows": 0,
+            "bvh_instanced": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -180,6 +182,8 @@ def traverse_tiles(nodesT, nodeskip, nodemeta, child, rays, *, nn: int,
     _launch("bvh_tiles", _tiles_entry(), nodesT.data_ptr(), child.data_ptr(),
             rays.data_ptr(), n, nn, int(any_hit), t.data_ptr(),
             ids.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+    if any_hit:
+        launches["bvh_tiles_any"] += 1
     return t, ids
 
 

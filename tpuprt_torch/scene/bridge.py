@@ -38,9 +38,8 @@ _NESTED = {"triangles": D.TriangleTable, "materials": D.MaterialTable,
            "instances": D.InstanceTable, "quadrics": D.QuadricTable}
 # Fields that feed only tpuprt's TPU paths, which the port's kernels never
 # read: the BVH's leaf prim-id table and per-node boxes (its jnp and chunked
-# walks), the quadric rows' facts for its unrolled brute force.
-_TPU_ONLY = {D.BvhAccel: ("prim_ids", "selfbb"),
-             D.QuadricTable: ("static_rows",)}
+# walks).
+_TPU_ONLY = {D.BvhAccel: ("prim_ids", "selfbb")}
 
 
 def _empty(v) -> bool:

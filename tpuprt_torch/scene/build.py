@@ -73,6 +73,22 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+_TWO_PI = 2.0 * math.pi - 1e-6
+
+
+def _quadric_static_row(kind: int, params) -> Tuple[int, bool, bool]:
+    """QuadricTable.static_rows' facts of one quadric (tpuprt/scene/
+    build.py:27-47): (kind, phi_full, z_full). Only a sphere's z range can
+    clip nothing, being bounded by +-radius; a disk has no z window."""
+    p = np.asarray(params, np.float64)
+    phimax = {D.QUADRIC_CONE: p[2], D.QUADRIC_HYPERBOLOID: p[6]}.get(kind,
+                                                                      p[3])
+    z_full = kind == D.QUADRIC_DISK
+    if kind == D.QUADRIC_SPHERE:
+        z_full = p[1] <= -p[0] * (1.0 - 1e-5) and p[2] >= p[0] * (1.0 - 1e-5)
+    return (kind, bool(phimax >= _TWO_PI), bool(z_full))
+
+
 class SceneBuilder:
     def __init__(self):
         self.quadrics: List[_Quadric] = []
@@ -405,14 +421,16 @@ class SceneBuilder:
                                          np.int32)),
                 flip_normal=_t(np.asarray([q.flip for q in qs], np.float32)),
                 count=len(qs),
-                kinds_present=tuple(sorted({q.kind for q in qs})))
+                kinds_present=tuple(sorted({q.kind for q in qs})),
+                static_rows=tuple(_quadric_static_row(q.kind, q.params)
+                                  for q in qs))
         else:
             z, f32, i32 = np.zeros, np.float32, np.int32
             quad = D.QuadricTable(
                 kind=_t(z(0, i32)), o2w=_t(z((0, 4, 4), f32)),
                 w2o=_t(z((0, 4, 4), f32)), params=_t(z((0, 8), f32)),
                 material=_t(z(0, i32)), area_light=_t(z(0, i32)),
-                flip_normal=_t(z(0, f32)))
+                flip_normal=_t(z(0, f32)), static_rows=())
 
         verts_l, idx_l, n_l, uv_l, tan_l = [], [], [], [], []
         hasn_l, hast_l, mat_l, al_l, flip_l = [], [], [], [], []

@@ -58,6 +58,11 @@ class QuadricTable:
     material: torch.Tensor     # i32[Q]
     area_light: torch.Tensor   # i32[Q], -1 if not emissive
     flip_normal: torch.Tensor  # f32[Q]: reverseOrientation ^ swapsHandedness
+    # Per-row build-time facts (kind, phi_full, z_full), host-side so a
+    # selection by them costs no device sync (tpuprt/scene/data.py:77-83):
+    # phi_full, phimax covers the whole circle; z_full, no z window clips
+    # the surface (a sphere's whole range, or a disk).
+    static_rows: Tuple
     count: int = 0
     kinds_present: Tuple = ()
 
