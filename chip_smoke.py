@@ -196,6 +196,25 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    boundary terms on the point-light shadow scene at 256x256, 2 ranks
    against 1 within 1e-5 relative (loss and vertex gradient). Walls,
    first and warm, of both worlds.
+34. render -- every material (shading_phases): bench3 with its walls and
+   spheres in substrate, primer, felt, bluepaint, uber at opacity 0.6,
+   translucent and shinymetal and no PixelFilter line (materials_text:
+   pbrt-v1's default Mitchell 2x2), 256x256 x 32 spp, path, depth 5,
+   bench.py's pool: mt_best launched in both modes, finite, walls,
+   samples/s, peak device memory; mt_best bit-equal on the BSDF-strategy
+   batch of the pass with the most live ones and on the shadow batch of
+   the pass with the most live shadow rays; the scene at the size of
+   scenes/bench3_materials.exr (tpuprt's, tools/shading_refs.py),
+   written with write_exr, inside golden3's limits of it.
+35. render -- every camera and pixel filter: config4_big at 512x512 x 4
+   spp through the tile walk with its box filter and as cameras_text
+   makes it: "mitchell" (a pinhole, no PixelFilter), "thinlens" (lens
+   radius 0.06 focused at 2.6, triangle), "ortho" (orthographic, gaussian,
+   a substrate terrain) and "env" (environment camera, sinc 4x4): each
+   launched and finite, walls and peak device memory; the film splat
+   alone, 2^17 samples a call, by filter (phase "splat": device and host
+   ms); then "thinlens" at the size of scenes/config4_thinlens.exr inside
+   phase 4's band of it.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -258,6 +277,10 @@ CONFIG6 = os.path.join(ROOT, "scenes", "config6.pbrt")
 GOLDEN6 = os.path.join(ROOT, "scenes", "golden6.exr")
 BENCH6 = os.path.join(ROOT, "scenes", "bench6.pbrt")
 BENCH6NG = os.path.join(ROOT, "scenes", "bench6ng.pbrt")
+# Phases 34-35's references, written by tpuprt on the CPU
+# (tools/shading_refs.py); each is rendered again at its own size.
+MATERIALS_EXR = os.path.join(ROOT, "scenes", "bench3_materials.exr")
+THINLENS_EXR = os.path.join(ROOT, "scenes", "config4_thinlens.exr")
 
 # bench.py's rays/s convention for config4_big: camera + shadow rays of the
 # reference pbrt-v1 run (bench.py CONFIG4_REF_RAYS).
@@ -540,6 +563,92 @@ def meshlight_text(text):
         "WorldBegin", 'Accelerator "none"\nWorldBegin', 1)
 
 
+# Phase 34: bench3's walls and spheres in the other materials (the disk
+# light keeps the default matte). Each entry replaces one Material line or
+# one sphere's material of scenes/bench3.pbrt.
+MATERIALS_3 = (
+    ('Material "matte" "color Kd" [0.73 0.73 0.73]\n'
+     'Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]\n'
+     '  "point P" [-1 -1 -1  1 -1 -1  1 -1 1  -1 -1 1]',
+     'Material "substrate" "color Kd" [0.62 0.56 0.48] "color Ks" '
+     '[0.18 0.18 0.18] "float uroughness" [0.04] "float vroughness" [0.3]\n'
+     'Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]\n'
+     '  "point P" [-1 -1 -1  1 -1 -1  1 -1 1  -1 -1 1]\n'
+     'Material "primer"'),                         # the floor; the ceiling
+    ('  "point P" [-1 1 -1  -1 1 1  1 1 1  1 1 -1]\n',
+     '  "point P" [-1 1 -1  -1 1 1  1 1 1  1 1 -1]\nMaterial "felt"\n'),
+    ('Material "matte" "color Kd" [0.65 0.05 0.05]',   # the left wall
+     'Material "bluepaint"'),
+    ('Material "matte" "color Kd" [0.12 0.45 0.15]',   # the right wall
+     'Material "uber" "color Kd" [0.12 0.45 0.15] "color Ks" [0.2 0.2 0.2] '
+     '"color Kr" [0.05 0.05 0.05] "float roughness" [0.02] '
+     '"color opacity" [0.6 0.6 0.6]'),
+    ('Material "glass"',
+     'Material "translucent" "color Kd" [0.5 0.4 0.3] "color Ks" '
+     '[0.3 0.3 0.3] "float roughness" [0.05] "color reflect" [0.6 0.6 0.6] '
+     '"color transmit" [0.4 0.4 0.4]'),
+    ('Material "mirror"',
+     'Material "shinymetal" "color Ks" [0.9 0.7 0.4] "color Kr" '
+     '[0.5 0.4 0.3] "float roughness" [0.03]'),
+)
+
+
+def materials_text(text, res=None, spp=None):
+    """bench3 (scenes/bench3.pbrt) with its walls and spheres in the other
+    materials (MATERIALS_3: substrate, primer, felt, bluepaint, uber at
+    opacity 0.6, translucent, shinymetal) and no PixelFilter line, so
+    pbrt-v1's default Mitchell 2x2 applies; by default at the file's
+    256x256 x 32 spp."""
+    for old, new in MATERIALS_3:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    text = "".join(line + "\n" for line in text.splitlines()
+                   if not line.startswith("PixelFilter"))
+    return film_text(text, res, spp)
+
+
+# Phase 35: config4_big's cameras and filters. Each kind's Camera and
+# PixelFilter lines replace the file's; "ortho" also makes the terrain
+# substrate over the checkerboard.
+CAMERAS_4 = {
+    "mitchell": ('Camera "perspective" "float fov" [55]', None),
+    "thinlens": ('Camera "perspective" "float fov" [55] "float lensradius" '
+                 '[0.06] "float focaldistance" [2.6]',
+                 'PixelFilter "triangle"'),
+    "ortho": ('Camera "orthographic" "float screenwindow" [-1.3 1.3 -1.3 '
+              '1.3]', 'PixelFilter "gaussian"'),
+    "env": ('Camera "environment"', 'PixelFilter "sinc"'),
+}
+
+
+def cameras_text(text, kind, res=None, spp=None):
+    """config4_big (scenes/config4_big.pbrt) through another camera and
+    pixel filter (CAMERAS_4): "mitchell" a pinhole and no PixelFilter line
+    (pbrt-v1's default Mitchell 2x2), "thinlens" a lens of radius 0.06
+    focused at 2.6 with the triangle filter, "ortho" the orthographic
+    camera with the gaussian filter over a substrate terrain, "env" the
+    environment camera with the sinc filter (4x4); by default at the
+    file's 512x512 x 4 spp."""
+    camera, pfilter = CAMERAS_4[kind]
+    lines = []
+    for line in text.splitlines():
+        if line.startswith("Camera "):
+            line = camera
+        elif line.startswith("PixelFilter "):
+            if pfilter is None:
+                continue
+            line = pfilter
+        lines.append(line)
+    text = "".join(line + "\n" for line in lines)
+    if kind == "ortho":
+        old = 'Material "matte" "texture Kd" "checks"'
+        assert text.count(old) == 1
+        text = text.replace(old, 'Material "substrate" "texture Kd" "checks" '
+                            '"color Ks" [0.12 0.12 0.12] "float uroughness" '
+                            '[0.02] "float vroughness" [0.25]')
+    return film_text(text, res, spp)
+
+
 def emit(**kw):
     print(json.dumps(kw), flush=True)
 
@@ -733,8 +842,9 @@ def camera_rays(scene, opts, device):
     cs = smp.camera_samples(opts.sampler, (pix % opts.xres).int(),
                             (pix // opts.xres).int(), (lin % spp).int(),
                             opts.seed)
-    o, d, mint, maxt = cam.generate_rays(scene.camera, cs["image_x"],
-                                         cs["image_y"], opts.xres, opts.yres)
+    o, d, mint, maxt, _ = cam.generate_rays(
+        scene.camera, cs["image_x"], cs["image_y"], cs["lens_u"],
+        cs["lens_v"], cs["time"], opts.xres, opts.yres)
     return torch.cat([o, d, mint[:, None], maxt[:, None]], 1).T.contiguous()
 
 
@@ -1032,14 +1142,14 @@ def patched(module, name, fn):
 
 
 def capture_rays(scene, opts, device, module, name, at, period=None,
-                 maps=None, aux=None):
+                 maps=None, aux=None, by=None):
     """The packed rays of one render's calls of the kernel wrapper
     module.name (rays its argument number `at`), as {any_hit: rays of the
     call with the most rays that have a non-empty window} (the first passes
     cover the sky, where no shadow ray is traced). With `period` p, when
     the render calls the wrapper p times a pass: {(k, any_hit): rays of the
-    k-th call of one pass}, the pass whose any-hit calls have the most such
-    rays. `maps`: a photonmap render's PhotonMaps (none: the render shoots
+    k-th call of one pass}, the pass whose any-hit calls (with `by`: whose
+    by-th call) have the most such rays. `maps`: a photonmap render's PhotonMaps (none: the render shoots
     its own, and those launches count in the period); `aux`: a chunked
     render's preprocess state (none: the render runs its preprocess). Not a
     main-path run: the counts are reset before that."""
@@ -1056,7 +1166,8 @@ def capture_rays(scene, opts, device, module, name, at, period=None,
                 cur.clear()
                 cur["live"] = 0
             cur[(k, any_hit)] = rays.clone()
-            cur["live"] += live if any_hit else 0
+            cur["live"] += live if (any_hit if by is None else k == by) \
+                else 0
             if k == period - 1 and cur["live"] > n[1]:
                 n[1] = cur["live"]
                 got.clear()
@@ -2637,6 +2748,157 @@ def shard_phase(device, launches, res4=None, res=None):
                              for s in step), step
 
 
+def peak_render(label, scene, opts, device, need):
+    """render_path with the peak device memory of its two renders:
+    (rgb, launches, first_s, wall_s, peak_bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = render_path(label, scene, opts, device, need)
+    return (*out, torch.cuda.max_memory_allocated())
+
+
+def ref_render(label, text_of, ref_path, device, need, limits):
+    """The scene text_of(res) at its reference EXR's size (res x res,
+    tools/shading_refs.py), through load_scene_string -> render() under
+    counted() -> write_exr, held inside `limits` (blurred rel, mean) of the reference
+    by test_golden._compare's measures. Returns the phase's line."""
+    import numpy as np
+    from tpuprt_torch import render as R
+    from tpuprt_torch.io.exr import read_exr, write_exr
+    from tpuprt_torch.scene.parser import load_scene_string
+    ref, _ = read_exr(ref_path)
+    scene, opts = load_scene_string(text_of(ref.shape[0]))
+    # f32 readback, then the EXR writer's half pixels as the reference
+    # has them: the f16 readback clips at 0, and a Mitchell or sinc filter
+    # leaves some pixels negative, which the writer keeps.
+    opts = opts._replace(chunk_size=1 << 17)
+    (rgb, alpha), counts, wall, peak = counted(device, lambda: R.render(
+        scene, opts, device=device))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, opts.filename)
+        write_exr(out, rgb, alpha)
+        rgb, _ = read_exr(out)
+    missing = unlaunched(device, counts, need)
+    if missing or rgb.shape != ref.shape or not np.isfinite(rgb).all():
+        raise AssertionError(f"{label}: launched no {missing}, or bad "
+                             f"image {rgb.shape}")
+    rel, mean = band(rgb, ref)
+    line = dict(phase="render", scene=label, shape=list(rgb.shape),
+                reference=os.path.relpath(ref_path, ROOT),
+                spp=opts.sampler.pixelsamples, launches=counts,
+                band_rel=rel, band_rel_limit=limits[0], band_mean=mean,
+                band_mean_limit=limits[1], wall_s=wall,
+                peak_device_bytes=peak)
+    emit(**line)
+    assert rel <= limits[0] and mean <= limits[1], (rel, mean)
+    return line
+
+
+def splat_timing(device, n=1 << 17, res=512, reps=5):
+    """The film splat alone on the card: n samples (a pool pass's lanes at
+    bench.py's 2^17) at random points of a res x res film, through
+    film.add_samples with each filter at its default width and a box of
+    width 1.5; device ms (timed) and host ms per call."""
+    import math
+    import numpy as np
+    import torch
+    from tpuprt_torch.film import film as film_mod
+    from tpuprt_torch.filters.filters import DEFAULT_WIDTHS
+    rng = np.random.default_rng(MAP_SEED)
+    ix, iy, alpha = (torch.from_numpy(rng.uniform(0, res, n).astype(
+        np.float32)).to(device) for _ in range(3))
+    L = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).to(
+        device)
+    film = film_mod.make_film(res, res, device=device)
+    for kind, (xw, yw) in list(DEFAULT_WIDTHS.items()) + [("box",
+                                                           (1.5, 1.5))]:
+        ms, _, host = timed(lambda: film_mod.add_samples(
+            film, ix, iy, L, alpha, kind, xw, yw), reps)
+        emit(phase="splat", filter=kind, width=[xw, yw], samples=n,
+             window=(math.floor(2 * xw) + 1) * (math.floor(2 * yw) + 1),
+             ms=ms, host_ms=host)
+
+
+def shading_phases(device, launches, res):
+    """Phases 34-35: every material, camera and pixel filter on the card.
+
+    34. bench3's box in the other materials (materials_text, Mitchell by
+    default) at 256x256 x 32 spp, path, depth 5, bench.py's pool: mt_best
+    launched in both modes, finite, walls and samples/s, peak memory; the
+    BSDF-strategy batch (nearest) of the pass with the most live ones and
+    the shadow batch (any hit) of the pass with the most live shadow rays
+    bit-equal to the plain version;
+    the scene at its reference's size inside golden3's limits of
+    scenes/bench3_materials.exr.
+    35. config4_big at 512x512 x 4 spp, directlighting, through the tile
+    walk: its box filter beside cameras_text's "mitchell", "thinlens",
+    "ortho" and "env", each launched and finite, walls and peak memory;
+    the film splat alone by filter (splat_timing); then "thinlens" at its
+    reference's size inside phase 4's band of
+    scenes/config4_thinlens.exr."""
+    from tpuprt_torch.ops import mt_cuda
+    from tpuprt_torch.scene.data import to_device
+    from tpuprt_torch.scene.parser import load_scene, load_scene_string
+    with open(BENCH3) as f:
+        b3_text = f.read()
+    t0 = time.perf_counter()
+    scene, opts = load_scene_string(materials_text(b3_text))
+    opts = opts._replace(chunk_size=1 << 17, half_readback=True)
+    emit(phase="load", scene="bench3/materials",
+         seconds=time.perf_counter() - t0,
+         materials=scene.materials.kind.tolist(),
+         lobe_kinds=list(scene.materials.lobe_kinds),
+         filter=[opts.filter_kind, opts.filter_xwidth, opts.filter_ywidth])
+    assert opts.filter_kind == "mitchell" and scene.accel is None
+    label = "bench3/materials"
+    rgb, launches[label], first_s, wall, peak = peak_render(
+        label, scene, opts, device, ["mt_best", "mt_best_any"])
+    spp = opts.sampler.pixelsamples
+    emit(phase="render", scene=label, shape=list(rgb.shape), spp=spp,
+         launches=launches[label], finite=True, first_render_s=first_s,
+         wall_s=wall, samples_per_s=opts.xres * opts.yres * spp / wall,
+         peak_device_bytes=peak)
+    # A pass calls mt_best three times (bounce, shadow, BSDF-strategy
+    # rays): the BSDF-strategy batch of the pass with the most live ones,
+    # the shadow batch of the pass with the most live shadow rays.
+    tris = mt_cuda.pack_table(to_device(scene, device).triangles)
+    for (k, any_hit), kind in (((2, False), "bsdf"), ((1, True), "shadow")):
+        rays = capture_rays(scene, opts, device, mt_cuda, "mt_best", 0,
+                            period=3, by=k if kind == "bsdf" else None)
+        res["mt_best"] += mt_parity(f"{label}/{kind}", tris,
+                                    rays[(k, any_hit)], modes=(any_hit,))
+    del rays, tris
+    ref_render(f"{label}/ref", lambda r: materials_text(b3_text, res=r),
+               MATERIALS_EXR, device, ["mt_best", "mt_best_any"],
+               (BAND3_REL, BAND3_MEAN))
+
+    with open(SCENE) as f:
+        c4_text = f.read()
+    for kind in ("box",) + tuple(CAMERAS_4):
+        t0 = time.perf_counter()
+        scene, opts = (load_scene(SCENE) if kind == "box" else
+                       load_scene_string(cameras_text(c4_text, kind)))
+        load_s = time.perf_counter() - t0
+        opts = opts._replace(chunk_size=1 << 17, half_readback=True)
+        label = "config4_big" + ("" if kind == "box" else f"/{kind}")
+        key = f"{label}/35" if kind == "box" else label
+        rgb, launches[key], first_s, wall, peak = peak_render(
+            label, scene, opts, device, ["bvh_tiles"])
+        emit(phase="render", scene=label, camera=scene.camera.kind,
+             lens_radius=float(scene.camera.lens_radius),
+             filter=[opts.filter_kind, opts.filter_xwidth,
+                     opts.filter_ywidth], load_s=load_s,
+             shape=list(rgb.shape), spp=opts.sampler.pixelsamples,
+             launches=launches[key], finite=True, first_render_s=first_s,
+             wall_s=wall, peak_device_bytes=peak)
+        del scene
+    splat_timing(device)
+    ref_render("config4_big/thinlens/ref",
+               lambda r: cameras_text(c4_text, "thinlens", res=r),
+               THINLENS_EXR, device, ["bvh_tiles"], (BAND_REL, BAND_MEAN))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--exr", help="also keep config4_big's rendered image "
@@ -3114,6 +3376,10 @@ def main(argv=None):
     boundary_phases(device, launches)
     shard_phase(device, launches)
     emit(phase="boundary_shard", seconds=time.perf_counter() - t0)
+    # 34. Every material; 35. every camera and pixel filter.
+    t0 = time.perf_counter()
+    shading_phases(device, launches, res)
+    emit(phase="shading", seconds=time.perf_counter() - t0)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -3167,6 +3433,13 @@ def main(argv=None):
             # The lights and textures path (phase 26) and its sets.
             entry["config4_big_lit_launches"] = \
                 launches["config4_big/lit"]["bvh_tiles"]
+            # The cameras and filters (phase 35), by mode.
+            for p in ("config4_big/mitchell", "config4_big/thinlens",
+                      "config4_big/ortho", "config4_big/env"):
+                key = p.replace("/", "_")
+                entry[f"{key}_launches"] = launches[p]["bvh_tiles"]
+                entry[f"{key}_launches_any_hit"] = \
+                    launches[p]["bvh_tiles_any"]
             entry["light_sets"] = light_sets(rs, "config4_big/lit/")
         if name == "mt_best":
             # bench3's path: its launches by mode and its camera set.
@@ -3211,6 +3484,12 @@ def main(argv=None):
                         tuple(GI_GOLDEN))},
                 # The mesh emitter's sets (phase 27).
                 light_sets=light_sets(rs, "bench3/meshlight/"),
+                # The materials (phase 34): launches by mode, its sets.
+                bench3_materials_launches=launches[
+                    "bench3/materials"]["mt_best"],
+                bench3_materials_launches_any_hit=launches[
+                    "bench3/materials"]["mt_best_any"],
+                materials_sets=light_sets(rs, "bench3/materials/"),
                 # One boundary gradient of each FD scene (phase 32), by
                 # mode.
                 boundary_launches={

@@ -84,8 +84,9 @@ def test_camera_samples_and_rays_match():
     jo, jd, jmint, jmaxt, _ = jcam.generate_rays(
         jscene.camera, jcs["image_x"], jcs["image_y"], jcs["lens_u"],
         jcs["lens_v"], jcs["time"], 16, 16)
-    to, td, tmint, tmaxt = tcam.generate_rays(
-        tscene.camera, tcs["image_x"], tcs["image_y"], 16, 16)
+    to, td, tmint, tmaxt, _ = tcam.generate_rays(
+        tscene.camera, tcs["image_x"], tcs["image_y"], tcs["lens_u"],
+        tcs["lens_v"], tcs["time"], 16, 16)
     for t, j in ((to, jo), (td, jd), (tmint, jmint)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
                                    atol=1e-6)

@@ -61,6 +61,14 @@ def look_at(pos, look, up):
     return m.astype(np.float32)
 
 
+def orthographic(znear, zfar):
+    """Camera-to-screen orthographic projection (core/transform.cpp:177-181)."""
+    m = np.eye(4, dtype=np.float32)
+    m[2, 2] = 1.0 / (zfar - znear)
+    m[2, 3] = -znear / (zfar - znear)
+    return m
+
+
 def perspective(fov_deg, n, f):
     """Camera-to-screen perspective projection (core/transform.cpp:182-193)."""
     inv_tan = 1.0 / np.tan(np.radians(fov_deg) / 2.0)

@@ -119,12 +119,19 @@ def _project(cam, p):
     return h[..., 0] / wsafe, h[..., 1] / wsafe, ok
 
 
+def _lens_centre(x):
+    """(lens_u, lens_v, time) of tpuprt's boundary rays: (0.5, 0.5, 0)."""
+    half = torch.full_like(x, 0.5)
+    return half, half, torch.zeros_like(x)
+
+
 @torch.no_grad()
 def _radiance_at(scene, opts, x, y):
     """Detached radiance through raster points (x, y) by the configured
-    integrator's scan Li (a pinhole camera: no lens sample)."""
-    o, d, mint, maxt = cam_mod.generate_rays(scene.camera, x, y, opts.xres,
-                                             opts.yres)
+    integrator's scan Li, the lens sample at the lens's centre and the
+    time 0 (tpuprt/diff/silhouette.py:111-116)."""
+    o, d, mint, maxt, _ = cam_mod.generate_rays(
+        scene.camera, x, y, *_lens_centre(x), opts.xres, opts.yres)
     px = torch.clamp(x.to(torch.int32), 0, opts.xres - 1)
     py = torch.clamp(y.to(torch.int32), 0, opts.yres - 1)
     return R.li(scene, opts, None, o, d, mint, maxt, px, py,
@@ -476,7 +483,8 @@ def area_shadow_surrogate(scene: SceneData, opts: R.RenderOptions,
             # Pixel and receiver samples.
             x = (jrandom.uniform(k2, (M,)) * W)[b]
             y = (jrandom.uniform(k3, (M,)) * H)[b]
-            o, d, mint, maxt = cam_mod.generate_rays(cam, x, y, W, H)
+            o, d, mint, maxt, _ = cam_mod.generate_rays(
+                cam, x, y, *_lens_centre(x), W, H)
             t, pid, hitm = isect.intersect_ids(scene, o, d, mint, maxt)
             dgp = isect.hit_geometry(scene, torch.clamp(pid, min=0), o, d,
                                      t)

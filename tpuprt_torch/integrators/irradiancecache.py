@@ -121,9 +121,13 @@ def probe_points(scene: SceneData, prm: IrradParams, xres: int, yres: int,
     px = torch.from_numpy(PX.reshape(-1).astype(np.int32)).to(dev)
     py = torch.from_numpy(PY.reshape(-1).astype(np.int32)).to(dev)
     ph = rng.hash_u32(px, py, seed, 0x1CAC)
-    ro, rd, mint, maxt = cam_mod.generate_rays(
+    # The lens at its centre and the shutter at its opening
+    # (irradiancecache.py:122-126).
+    half = torch.full(px.shape, 0.5, dtype=torch.float32, device=dev)
+    ro, rd, mint, maxt, _ = cam_mod.generate_rays(
         scene.camera, px.to(torch.float32) + 0.5,
-        py.to(torch.float32) + 0.5, xres, yres)
+        py.to(torch.float32) + 0.5, half, half, torch.zeros_like(half),
+        xres, yres)
     alive = torch.ones(px.shape, dtype=torch.bool, device=dev)
     pts, nrms, valids = [], [], []
     for depth in range(prm.probe_depth):

@@ -57,11 +57,12 @@ def _regen(scene: SceneData, cfg, lin, seed, xres, yres, xstart, xcount,
     py = (ystart + pix // xcount).to(torch.int32)
     cs = smp.camera_samples(cfg, px, py, s_idx, seed)
     ix, iy = cs["image_x"], cs["image_y"]
-    o, d, mint, maxt = cam_mod.generate_rays(scene.camera, ix, iy, xres, yres)
-    o_rx, d_rx, _, _ = cam_mod.generate_rays(scene.camera, ix + 1.0, iy,
-                                             xres, yres)
-    o_ry, d_ry, _, _ = cam_mod.generate_rays(scene.camera, ix, iy + 1.0,
-                                             xres, yres)
+    # The differential rays keep the lens and time samples
+    # (path_wavefront.py:91-99).
+    lens = (cs["lens_u"], cs["lens_v"], cs["time"], xres, yres)
+    o, d, mint, maxt, _ = cam_mod.generate_rays(scene.camera, ix, iy, *lens)
+    o_rx, d_rx = cam_mod.generate_rays(scene.camera, ix + 1.0, iy, *lens)[:2]
+    o_ry, d_ry = cam_mod.generate_rays(scene.camera, ix, iy + 1.0, *lens)[:2]
     return dict(px=px, py=py, s_idx=s_idx, ix=ix, iy=iy, o=o, d=d,
                 mint=mint, maxt=maxt, rx_o=o_rx, rx_d=d_rx, ry_o=o_ry,
                 ry_d=d_ry)

@@ -48,7 +48,7 @@ from . import common
 
 _EPS = vm.RAY_EPSILON
 MAPS = ("direct", "caustic", "indirect")     # classes 0, 1, 2
-GLOSSY_LOBE_KINDS = (B.BX_MICROFACET,)
+GLOSSY_LOBE_KINDS = (B.BX_MICROFACET, B.BX_FRESNELBLEND)
 # Gather lanes (rays x gather samples at once) a gigabyte of free device
 # memory takes: a lane's rays, hit record, BSDF and photon lookups hold
 # a few kilobytes of temporaries.

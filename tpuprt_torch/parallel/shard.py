@@ -54,8 +54,9 @@ def sample_losses(scene: SceneData, opts: R.RenderOptions, px, py, s_idx,
     scene = R.on_device(scene, device)
     px, py, s_idx, target = (x.to(device) for x in (px, py, s_idx, target))
     cs = smp.camera_samples(opts.sampler, px, py, s_idx, opts.seed)
-    o, d, mint, maxt = cam_mod.generate_rays(
-        scene.camera, cs["image_x"], cs["image_y"], opts.xres, opts.yres)
+    o, d, mint, maxt, _ = cam_mod.generate_rays(
+        scene.camera, cs["image_x"], cs["image_y"], cs["lens_u"],
+        cs["lens_v"], cs["time"], opts.xres, opts.yres)
     L = R.li(scene, opts, None, o, d, mint, maxt, px, py, s_idx)[0]
     diff = L - target[py.long(), px.long()]
     return torch.sum(diff * diff, dim=-1)

@@ -197,12 +197,12 @@ def render_chunk(scene: SceneData, opts: RenderOptions, film, px, py, s_idx,
     sample is black, core/scene.cpp:60-74), the splat."""
     cs = smp.camera_samples(opts.sampler, px, py, s_idx, opts.seed)
     ix, iy = cs["image_x"], cs["image_y"]
-    o, d, mint, maxt = cam_mod.generate_rays(scene.camera, ix, iy, opts.xres,
-                                             opts.yres)
-    rx = cam_mod.generate_rays(scene.camera, ix + 1.0, iy, opts.xres,
-                               opts.yres)[:2]
-    ry = cam_mod.generate_rays(scene.camera, ix, iy + 1.0, opts.xres,
-                               opts.yres)[:2]
+    # The +1-pixel differential rays keep the lens and time samples
+    # (tpuprt/render.py:119-129).
+    lens = (cs["lens_u"], cs["lens_v"], cs["time"], opts.xres, opts.yres)
+    o, d, mint, maxt, _ = cam_mod.generate_rays(scene.camera, ix, iy, *lens)
+    rx = cam_mod.generate_rays(scene.camera, ix + 1.0, iy, *lens)[:2]
+    ry = cam_mod.generate_rays(scene.camera, ix, iy + 1.0, *lens)[:2]
     L, alpha, _ = li(scene, opts, aux, o, d, mint, maxt, px, py, s_idx, rx,
                      ry)
     bad = torch.any(~torch.isfinite(L) | (L < 0.0), dim=-1)

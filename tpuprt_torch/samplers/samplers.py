@@ -15,8 +15,7 @@ the JAX package's bit for bit:
                     table covers, a pixel's s-th sample is the s-th entry
                     landing in it, and cells the table left short fall
                     back to the (0,2)-sequences.
-The lens and time dimensions feed only features the port does not have
-(thin lens, motion), so they are not drawn.
+Each draws the image position, the lens sample and the shutter time.
 """
 from __future__ import annotations
 
@@ -108,9 +107,25 @@ def bc_tables(spp: int, device):
     return got
 
 
+def _strat_shuffled(ph, s_idx, n, dim):
+    """A hash-keyed permutation of s_idx within [0, n), keyed on (pixel,
+    dim) (samplers.py:186-194): three rounds of add and multiply mod n,
+    each sum and product wrapping mod 2^32 first, as tpuprt's uint32 do."""
+    k = rng.hash_u32(ph, dim, 0x5EED)
+    m = max(n, 1)
+    # hash_u32(k, r) for the three rounds, sharing its first mix of k.
+    h = rng.hash_u32(k)
+    x = rng.u32(s_idx)
+    for r in range(3):
+        x = ((x + k) & rng._M32) % m
+        # x < m, so x * 2654435761 stays inside int64.
+        x = ((x * 2654435761 + rng._mix((r + h) & rng._M32)) & rng._M32) % m
+    return x.to(torch.float32)
+
+
 def camera_samples(cfg: SamplerConfig, px, py, s_idx, seed=0):
-    """Image-plane position of (pixel, sample index): dict(image_x,
-    image_y)."""
+    """Camera-sample dimensions of (pixel, sample index): dict(image_x,
+    image_y, lens_u, lens_v, time)."""
     check(cfg)
     ph = _pixel_hash(px, py, seed)
     fx = px.to(torch.float32)
@@ -119,21 +134,39 @@ def camera_samples(cfg: SamplerConfig, px, py, s_idx, seed=0):
         xs, ys = cfg.xsamples, cfg.ysamples
         sx = (s_idx % xs).to(torch.float32)
         sy = torch.div(s_idx, xs, rounding_mode="floor").to(torch.float32)
+        half = torch.full(px.shape, 0.5, dtype=torch.float32,
+                          device=px.device)
         if cfg.jitter:
             jx = rng.uniform(ph, s_idx, 0)
             jy = rng.uniform(ph, s_idx, 1)
         else:
-            jx = jy = torch.full(px.shape, 0.5, dtype=torch.float32,
-                                 device=px.device)
-        return dict(image_x=fx + (sx + jx) / xs, image_y=fy + (sy + jy) / ys)
+            jx = jy = half
+        # Lens and time: per-pixel shuffled strata, decorrelated from the
+        # image strata (stratified.cpp:51-131).
+        n = xs * ys
+        perm_l = _strat_shuffled(ph, s_idx, n, 2)
+        perm_t = _strat_shuffled(ph, s_idx, n, 3)
+        ju, jv, jt = ((rng.uniform(ph, s_idx, 4), rng.uniform(ph, s_idx, 5),
+                       rng.uniform(ph, s_idx, 6)) if cfg.jitter
+                      else (half, half, half))
+        return dict(image_x=fx + (sx + jx) / xs, image_y=fy + (sy + jy) / ys,
+                    lens_u=(perm_l + ju) / n, lens_v=(perm_t + jv) / n,
+                    time=(perm_l + jt) / n)
     if cfg.kind == "random":
         return dict(image_x=fx + rng.uniform(ph, s_idx, 0),
-                    image_y=fy + rng.uniform(ph, s_idx, 1))
+                    image_y=fy + rng.uniform(ph, s_idx, 1),
+                    lens_u=rng.uniform(ph, s_idx, 2),
+                    lens_v=rng.uniform(ph, s_idx, 3),
+                    time=rng.uniform(ph, s_idx, 4))
     ix, iy = rng.ld_shuffled_2d(s_idx, ph, 0)
+    lu, lv = rng.ld_shuffled_2d(s_idx, ph, 1)
+    tm = rng.ld_shuffled_1d(s_idx, ph, 2)
     if cfg.kind == "lowdiscrepancy":
-        return dict(image_x=fx + ix, image_y=fy + iy)
-    # Best candidate: the entry's position inside its tile, unless the
-    # table left this (cell, sample) short.
+        return dict(image_x=fx + ix, image_y=fy + iy, lens_u=lu, lens_v=lv,
+                    time=tm)
+    # Best candidate: the entry's position inside its tile and its time and
+    # lens shifted toroidally per tile (bestcandidate.cpp:121-136), unless
+    # the table left this (cell, sample) short: then the (0,2)-sequences.
     tw, emap, efall, tab = bc_tables(samples_per_pixel(cfg), px.device)
     cx = px % tw
     cy = py % tw
@@ -141,10 +174,19 @@ def camera_samples(cfg: SamplerConfig, px, py, s_idx, seed=0):
     si = torch.clamp(s_idx, 0, emap.shape[1] - 1).long()
     row = tab[emap[cell, si].long()]
     fall = efall[cell, si]
+    th = rng.hash_u32(torch.div(px, tw, rounding_mode="floor"),
+                      torch.div(py, tw, rounding_mode="floor"), seed, 0xBC)
+
+    def wrap(col, k):
+        v = row[..., col] + rng.uniform(th, 0, k)
+        return torch.where(v > 1.0, v - 1.0, v)
     ex = (px - cx).to(torch.float32) + row[..., 0] * tw
     ey = (py - cy).to(torch.float32) + row[..., 1] * tw
     return dict(image_x=torch.where(fall, fx + ix, ex),
-                image_y=torch.where(fall, fy + iy, ey))
+                image_y=torch.where(fall, fy + iy, ey),
+                lens_u=torch.where(fall, lu, wrap(3, 1)),
+                lens_v=torch.where(fall, lv, wrap(4, 2)),
+                time=torch.where(fall, tm, wrap(2, 0)))
 
 
 def integrator_1d(cfg: SamplerConfig, px, py, s_idx, bounce, purpose, seed=0):

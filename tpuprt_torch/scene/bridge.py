@@ -11,7 +11,8 @@ or none (brute force).
 Anything else raises NotImplementedError. The BVH's rows are padded to 128 columns, as the port
 stores them, and get the port's child-id table and depth
 (accel/bvh_build.child_table); an instance table gets the port's top-level
-BVH over its entries (accel/instances.build_top). tpuprt carries neither.
+BVH over its entries (accel/instances.build_top); a camera gets its
+thin_lens flag from its lens radius. tpuprt carries none of these.
 photon_maps_from_numpy does the same for a tpuprt PhotonMaps, and
 virtual_lights_from_numpy, point_grid_from_numpy and
 exphoton_aux_from_numpy for the preprocess state of igi, the irradiance
@@ -61,6 +62,8 @@ def _build(cls, d: dict, device, where: str):
                  max_depth=int(depth.max(initial=0)))
     if cls is D.InstanceTable:
         d = dict(d, top_nodes=build_top(d["entry_bbox"]))
+    if cls is D.CameraData:
+        d = dict(d, thin_lens=bool(np.asarray(d["lens_radius"]) > 0.0))
     if cls is D.LightTable:
         area = np.asarray(d["kind"]) == D.LIGHT_AREA
         d = dict(d, area_geoms_present=tuple(sorted(

@@ -37,6 +37,8 @@ AREA_GEOM_TRIS = 1
 AREA_GEOM_INST = 2
 
 CAMERA_PERSPECTIVE = 0
+CAMERA_ORTHOGRAPHIC = 1
+CAMERA_ENVIRONMENT = 2
 
 
 @dataclass
@@ -187,6 +189,7 @@ class CameraData:
     shutter_close: torch.Tensor = None
     cliphither: float = 1e-3
     clipyon: float = 1e30
+    thin_lens: bool = False           # built with a lens radius above 0
 
 
 @dataclass

@@ -1,7 +1,10 @@
 """pbrt scene-description parser + API state machine (port of
 tpuprt/scene/parser.py for the statements the port renders).
 
-Statements: Film, LookAt, Camera "perspective", Sampler, PixelFilter,
+Statements: Film, LookAt, Camera "perspective" (with a thin lens),
+"orthographic" and "environment" with the shutter times, Sampler,
+PixelFilter "box", "triangle", "gaussian", "mitchell" (pbrt-v1's default)
+and "sinc" (their widths; the shape parameters keep tpuprt's defaults),
 SurfaceIntegrator "directlighting", "path", "whitted" and "photonmap",
 Accelerator (with the kd-tree's SAH knobs), WorldBegin/End,
 AttributeBegin/End,
@@ -9,7 +12,8 @@ TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
 ReverseOrientation, Texture of every class tpuprt reads (constant, scale,
 mix, bilerp, uv, checkerboard in 2D and 3D, dots, fbm, wrinkled, windy,
 marble, imagemap; any other class a constant 0.5 gray, as tpuprt's),
-Material "matte", "plastic", "glass" and "mirror" with a "bumpmap",
+Material of all fourteen kinds (matte, plastic, glass, mirror, shinymetal,
+substrate, translucent, uber and the six measured BRDFs) with a "bumpmap",
 LightSource "point", "spot", "distant", "infinite" and "infinitesample"
 (with or without a "mapname"), "projection" and "goniometric",
 AreaLightSource "area" on a sphere, disk, cylinder or triangle mesh, Shape
@@ -42,6 +46,7 @@ from ..integrators.irradiancecache import IrradParams
 from ..integrators.photonmap import PhotonParams
 from ..io.exr import read_exr
 from ..io.mipmap_build import build_pyramid
+from ..materials.factory import MATERIAL_KINDS
 from ..samplers.samplers import SamplerConfig
 from ..textures.graph import TexNodeMeta
 from . import data as D
@@ -361,6 +366,33 @@ class PbrtParser:
         if kind == "mirror":
             return self.builder.add_material("mirror", [
                 self._child(params, "Kr", (0.9,) * 3)], bump=bump)
+        if kind == "shinymetal":
+            return self.builder.add_material("shinymetal", [
+                self._child(params, "Ks", (1.0,) * 3),
+                self._child(params, "Kr", (1.0,) * 3),
+                self._child(params, "roughness", 0.1, True)], bump=bump)
+        if kind == "substrate":
+            return self.builder.add_material("substrate", [
+                self._child(params, "Kd", (0.5,) * 3),
+                self._child(params, "Ks", (0.5,) * 3),
+                self._child(params, "uroughness", 0.1, True),
+                self._child(params, "vroughness", 0.1, True)], bump=bump)
+        if kind == "translucent":
+            return self.builder.add_material("translucent", [
+                self._child(params, "Kd", (0.25,) * 3),
+                self._child(params, "Ks", (0.25,) * 3),
+                self._child(params, "roughness", 0.1, True),
+                self._child(params, "reflect", (0.5,) * 3),
+                self._child(params, "transmit", (0.5,) * 3)], bump=bump)
+        if kind == "uber":
+            return self.builder.add_material("uber", [
+                self._child(params, "Kd", (0.25,) * 3),
+                self._child(params, "Ks", (0.25,) * 3),
+                self._child(params, "Kr", (0.0,) * 3),
+                self._child(params, "roughness", 0.1, True),
+                self._child(params, "opacity", (1.0,) * 3)], bump=bump)
+        if kind in MATERIAL_KINDS:     # the six measured materials
+            return self.builder.add_material(kind, [], bump=bump)
         raise NotImplementedError(f'material "{kind}" is not ported')
 
     def _material_id(self) -> int:
@@ -614,24 +646,35 @@ class PbrtParser:
         crop = fp.find_floats("cropwindow")
         crop = tuple(float(c) for c in crop) if crop is not None \
             else (0.0, 1.0, 0.0, 1.0)
-        if self.camera_name != "perspective":
+        if self.camera_name not in ("perspective", "orthographic",
+                                    "environment"):
             raise NotImplementedError(
                 f'camera "{self.camera_name}" is not ported')
         c2w = np.linalg.inv(self.camera_w2c).astype(np.float32)
         p = self.camera_params
         hither = max(1e-4, p.find_one("hither", 1e-3))
         yon = min(p.find_one("yon", 1e30), 1e30)
+        sopen = p.find_one("shutteropen", 0.0)
+        sclose = p.find_one("shutterclose", 1.0)
+        lensr = p.find_one("lensradius", 0.0)
+        focal = p.find_one("focaldistance", 1e30)
         frameaspect = p.find_one("frameaspectratio",
                                  float(xres) / float(yres))
         screen = p.find_floats("screenwindow")
         if screen is None:
             screen = cam.default_screen_window(xres, yres, frameaspect)
-        self.builder.set_camera(cam.build_projective(
-            D.CAMERA_PERSPECTIVE, c2w,
-            np.asarray(tfm.perspective(p.find_one("fov", 90.0), hither, yon)),
-            screen, xres, yres, hither, yon,
-            p.find_one("shutteropen", 0.0), p.find_one("shutterclose", 1.0),
-            p.find_one("lensradius", 0.0), p.find_one("focaldistance", 1e30)))
+        if self.camera_name == "environment":
+            camera = cam.build_environment(c2w, hither, yon, sopen, sclose)
+        else:
+            kind, proj = (
+                (D.CAMERA_PERSPECTIVE, tfm.perspective(p.find_one(
+                    "fov", 90.0), hither, yon))
+                if self.camera_name == "perspective" else
+                (D.CAMERA_ORTHOGRAPHIC, tfm.orthographic(hither, yon)))
+            camera = cam.build_projective(
+                kind, c2w, np.asarray(proj), screen, xres, yres, hither,
+                yon, sopen, sclose, lensr, focal)
+        self.builder.set_camera(camera)
         # tpuprt's mapping (tpuprt/scene/parser.py:834-847): "stratified"
         # and "random" are themselves; "lowdiscrepancy", pbrt-v1's default
         # "bestcandidate" and any other name take the (0,2)-sequences.
@@ -647,6 +690,8 @@ class PbrtParser:
         else:
             scfg = SamplerConfig(kind="lowdiscrepancy",
                                  pixelsamples=sp.find_one("pixelsamples", 4))
+        # The filter's widths, as tpuprt reads them: its "B"/"C",
+        # "alpha" and "tau" keep their defaults (tpuprt/render.py:158-160).
         if self.filter_name not in DEFAULT_WIDTHS:
             raise NotImplementedError(
                 f'pixel filter "{self.filter_name}" is not ported')
