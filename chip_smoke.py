@@ -215,6 +215,26 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    alone, 2^17 samples a call, by filter (phase "splat": device and host
    ms); then "thinlens" at the size of scenes/config4_thinlens.exr inside
    phase 4's band of it.
+36. render -- volumes (volume_phases): config4_big/fog (fog_text: a
+   homogeneous box over the terrain, VolumeIntegrator "single") at
+   512x512 x 4 spp, directlighting, through the tile walk, and
+   bench3/smoke (smoke_text: a 32^3 volumegrid of seeded puffs, "single")
+   at 256x256 x 32 spp in path mode through mt_best: walls first and warm,
+   peak device memory, launches; the pool against the scan driver per
+   pixel (SCAN_TOL); the kernel bit-equal on every k-th ray of the scan's
+   largest any-hit call (the single-scattering march's shadow rays); each
+   at the size of its reference (scenes/config4_fog.exr,
+   bench3_smoke.exr: tpuprt's, tools/volume_refs.py, emission only) within
+   VOL_REF_REL, VOL_REF_MEAN. bench6/fog (bench6 in a thin homogeneous
+   box: photonmap over volumes takes the chunked driver): load -> maps ->
+   render, first and warm, finite, peak memory, mt_best's launches.
+37. render -- the rest of instancing (instancing_phases): rocks/loop, the
+   rocks with the rock a loopsubdiv (loop_rock: 3 levels, 1280
+   triangles), its prototype bit-equal to the port's tessellation written
+   inline and the images within LOOP_REL; rocks/lamps, the rocks and 48
+   instanced quad lamps (lamps_text, every 8th mirrored), directlighting
+   "one", beside the same lamps inline (LAMP_DIFF, LAMP_MAX), the
+   instanced walk bit-equal on every k-th ray of its largest call.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -414,6 +434,29 @@ BOUNDARY_FD = {
 BOUNDARY_STEPS = 3        # config4_big's timed steps, each kind
 SHARD_TOL = 1e-5          # sharded against single-device results
 
+# Phases 36-37, volumes and the rest of instancing. The references of
+# config4_big/fog and bench3/smoke, written by tpuprt on the CPU
+# (tools/volume_refs.py) at their own films; the card's image at that film
+# within these limits (blurred rel, mean) of it: the same samples, so
+# only float differences remain.
+# The references are emission-only ("emission"): a jit of tpuprt's
+# single-scattering render_chunk did not finish on the CPU (config4_big's
+# failed after a 5.5-minute compile, bench3's ran past 18 minutes), so
+# "single" is held by the pool against the scan here and per lane on the
+# CPU (tests/test_torch_volumes_single.py).
+FOG_EXR = os.path.join(ROOT, "scenes", "config4_fog.exr")
+SMOKE_EXR = os.path.join(ROOT, "scenes", "bench3_smoke.exr")
+VOL_REF_REL, VOL_REF_MEAN = 1e-3, 1e-3
+VOL_REF_INTEGRATOR = "emission"
+SMOKE_N, SMOKE_SEED = 32, 5  # bench3/smoke's density grid: 32^3, seeded
+LAMPS, LAMP_MIRROR = 48, 8   # rocks/lamps: 48 lamps, every 8th mirrored
+# Instanced lamps against the same lamps inline: test_instances.py's
+# measures (mean |diff| / mean, the brightest pixel's relative difference).
+LAMP_DIFF, LAMP_MAX = 0.03, 0.01
+# rocks/loop against its inline tessellation, per pixel: the same samples,
+# summed into a pixel in the order of the card's atomic adds.
+LOOP_REL = 1e-5
+
 
 def write_lit_maps(d, small=1):
     """The maps of phases 26-28 as half EXRs in directory `d`, each side
@@ -593,6 +636,60 @@ MATERIALS_3 = (
 )
 
 
+def fog_text(text, res=None, spp=None, integrator="single"):
+    """config4_big's text (film_text's res, spp) with one homogeneous
+    Volume box over the terrain, thin fog that scatters forward, and the
+    single-scattering VolumeIntegrator (or `integrator`)."""
+    text = film_text(text, res, spp).replace(
+        'SurfaceIntegrator "directlighting"',
+        f'SurfaceIntegrator "directlighting"\n'
+        f'VolumeIntegrator "{integrator}"', 1)
+    cut = text.rindex("WorldEnd")
+    return text[:cut] + (
+        'Volume "homogeneous" "color sigma_a" [0.05 0.05 0.05]\n'
+        '  "color sigma_s" [0.25 0.25 0.25] "float g" [0.3]\n'
+        '  "point p0" [-1.2 -0.6 -1.2] "point p1" [1.2 0.35 1.2]\n') + \
+        text[cut:]
+
+
+def smoke_grid(n=SMOKE_N, seed=SMOKE_SEED):
+    """bench3/smoke's density, n^3 values (x fastest): a smooth field of
+    six Gaussian puffs at seeded centres and widths, in [0, ~1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    c = (np.arange(n) + 0.5) / n
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    d = np.zeros((n, n, n))
+    for _ in range(6):
+        m = rng.uniform(0.25, 0.75, 3)
+        w = rng.uniform(0.1, 0.22)
+        d += rng.uniform(0.4, 0.8) * np.exp(
+            -((x - m[0]) ** 2 + (y - m[1]) ** 2 + (z - m[2]) ** 2) /
+            (2 * w * w))
+    return np.minimum(d, 1.0)
+
+
+def smoke_text(text, res=None, spp=None, integrator="single"):
+    """bench3's text (film_text's res, spp) with a SMOKE_N^3 "volumegrid"
+    of smoke_grid's density inside the box: scattering, a little
+    absorption, a faint warm glow, and the single-scattering
+    VolumeIntegrator (or `integrator`)."""
+    text = film_text(text, res, spp).replace(
+        'SurfaceIntegrator "path" "integer maxdepth" [5]',
+        'SurfaceIntegrator "path" "integer maxdepth" [5]\n'
+        f'VolumeIntegrator "{integrator}"', 1)
+    n = SMOKE_N
+    dens = " ".join(f"{v:.4f}" for v in smoke_grid().ravel())
+    cut = text.rindex("WorldEnd")
+    return text[:cut] + (
+        f'Volume "volumegrid" "integer nx" [{n}] "integer ny" [{n}] '
+        f'"integer nz" [{n}]\n  "float density" [{dens}]\n'
+        '  "color sigma_a" [0.2 0.2 0.2] "color sigma_s" [1.2 1.2 1.2]\n'
+        '  "color Le" [0.03 0.02 0.01] "float g" [0.2]\n'
+        '  "point p0" [-0.95 -1 -0.95] "point p1" [0.95 0.6 0.95]\n') + \
+        text[cut:]
+
+
 def materials_text(text, res=None, spp=None):
     """bench3 (scenes/bench3.pbrt) with its walls and spheres in the other
     materials (MATERIALS_3: substrate, primer, felt, bluepaint, uber at
@@ -653,7 +750,8 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0):
+def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0,
+                     rock=None):
     """`base_text` (a config4-style terrain scene) with `n_rocks` instances
     of one rock inserted before its WorldEnd.
 
@@ -667,7 +765,9 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0):
     every 10th is mirrored (Scale -1 1 1) and every 7th scaled by k in
     [0.5, 1.5] along y (a non-uniform scale). With dup_every k > 0, every
     k-th instance is placed again after all of them: the same prototype
-    under the same transform, so its hits tie exactly with the first's."""
+    under the same transform, so its hits tie exactly with the first's.
+    `rock`: the object's shape lines in place of the icosphere (the
+    placements do not change)."""
     import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_scenes import icosphere
@@ -680,11 +780,13 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0):
     def nums(a):
         return " ".join(f"{x:.6g}" for x in np.asarray(a).ravel())
 
+    shape = rock or (
+        f'Shape "trianglemesh" "integer indices" [{nums(faces)}]\n'
+        f'  "point P" [{nums(verts)}]\n  "normal N" [{nums(dirs)}]\n'
+        f'  "float uv" [{nums(np.stack([u, v], 1))}]\n')
     out = ['ObjectBegin "rock"\n',
-           'Material "matte" "color Kd" [0.45 0.42 0.40]\n',
-           f'Shape "trianglemesh" "integer indices" [{nums(faces)}]\n',
-           f'  "point P" [{nums(verts)}]\n  "normal N" [{nums(dirs)}]\n',
-           f'  "float uv" [{nums(np.stack([u, v], 1))}]\n', "ObjectEnd\n"]
+           'Material "matte" "color Kd" [0.45 0.42 0.40]\n', shape,
+           "ObjectEnd\n"]
     nx, nz = 40, 25
     blocks = []
     for i in range(n_rocks):
@@ -705,6 +807,66 @@ def rocks_scene_text(base_text, n_rocks, subdiv, seed, dup_every=0):
     out += blocks
     if dup_every:
         out += blocks[::dup_every]
+    cut = base_text.rindex("WorldEnd")
+    return base_text[:cut] + "".join(out) + base_text[cut:]
+
+
+def loop_rock(seed=ROCK_SEED, nlevels=3, inline=False):
+    """The rock as a Loop subdivision surface: a Shape "loopsubdiv" of
+    `nlevels` over a jittered icosahedron (12 vertices pushed out radially
+    by a seeded factor in [0.8, 1.2]; 20 x 4^3 = 1280 triangles at 3
+    levels), or with `inline` the port's tessellation of it written as a
+    trianglemesh, every f32 value exactly."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_scenes import icosphere
+    dirs, faces = icosphere(0)
+    verts = dirs * np.random.default_rng(seed + 100).uniform(
+        0.8, 1.2, (len(dirs), 1))
+    nums = lambda a: " ".join(f"{x:.9g}" for x in np.asarray(a).ravel())
+    text = (f'Shape "loopsubdiv" "integer nlevels" [{nlevels}]\n'
+            f'  "integer indices" [{nums(faces)}]\n'
+            f'  "point P" [{nums(verts.astype(np.float32))}]\n')
+    if not inline:
+        return text
+    from tpuprt_torch.scene.parser import ParamSet, tokenize, _Stream
+    ts = _Stream(tokenize(text))
+    ts.next()
+    ts.next()
+    P, idx, _, _ = __import__(
+        "tpuprt_torch.scene.tessellate", fromlist=["tessellate"]).tessellate(
+            "loopsubdiv", ts.params())
+    return (f'Shape "trianglemesh" "integer indices" [{nums(idx)}]\n'
+            f'  "point P" [{nums(P)}]\n')
+
+
+def lamps_text(base_text, n=LAMPS, mirror_every=LAMP_MIRROR, seed=3,
+               inline=False):
+    """`base_text` (the rocks scene) with `n` quad lamps hovering over the
+    terrain (make_scenes.terrain's height function), emitting down onto it:
+    one emissive ObjectBegin "lamp" placed n times at seeded points, yaws
+    and sizes (similarity transforms, each placement its own light), every
+    `mirror_every`-th mirrored (Scale -1 1 1); with `inline`, the same
+    lamps written inline, each a mesh emitter (the duplication path)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lamp = ('AreaLightSource "area" "color L" [9 8 6]\n'
+            'Material "matte" "color Kd" [0.1 0.1 0.1]\n'
+            'Shape "trianglemesh" "integer indices" [0 2 1 0 3 2]\n'
+            '  "point P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1]\n')
+    out = [] if inline else ['ObjectBegin "lamp"\n', lamp, "ObjectEnd\n"]
+    for i in range(n):
+        x, z = rng.uniform(-0.9, 0.9, 2)
+        h = 0.35 * (np.sin(3.1 * x) * np.cos(2.7 * z) +
+                    0.4 * np.sin(7.3 * x + 1.1) * np.sin(6.1 * z))
+        side = rng.uniform(0.01, 0.025)
+        out.append(f"AttributeBegin\n  Translate {x:.6g} {h + 0.06:.6g} "
+                   f"{z:.6g}\n  Rotate {rng.uniform(0, 360):.6g} 0 1 0\n"
+                   f"  Scale {side:.6g} {side:.6g} {side:.6g}\n")
+        if mirror_every and i % mirror_every == 0:
+            out.append("  Scale -1 1 1\n")
+        out.append((lamp if inline else '  ObjectInstance "lamp"\n') +
+                   "AttributeEnd\n")
     cut = base_text.rindex("WorldEnd")
     return base_text[:cut] + "".join(out) + base_text[cut:]
 
@@ -1304,10 +1466,11 @@ def band(rgb, ref):
     return rel, mean
 
 
-def render_path(label, scene, opts, device, need, exr=None):
+def render_path(label, scene, opts, device, need, exr=None, alpha=None):
     """One main-path run: counts set to 0, render, counts read, image
     written and read back, then a second render timed. Fails unless every
-    kernel in `need` launched. Returns (rgb, launches, first_s, wall_s)."""
+    kernel in `need` launched. Returns (rgb, launches, first_s, wall_s);
+    the first render's alpha is appended to the list `alpha` if given."""
     import numpy as np
     from tpuprt_torch import render as R
     from tpuprt_torch.io.exr import read_exr, write_exr
@@ -1317,12 +1480,14 @@ def render_path(label, scene, opts, device, need, exr=None):
         for k in c:
             c[k] = 0
     t0 = time.perf_counter()
-    rgb, alpha = R.render(scene, opts, device=device)
+    rgb, a = R.render(scene, opts, device=device)
     first_s = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.items()}
+    if alpha is not None:
+        alpha.append(a)
     with tempfile.TemporaryDirectory() as tmp:
         out = exr or os.path.join(tmp, opts.filename)
-        write_exr(out, rgb, alpha)
+        write_exr(out, rgb, a)
         back, _ = read_exr(out)
     t0 = time.perf_counter()
     R.render(scene, opts, device=device)
@@ -2748,13 +2913,15 @@ def shard_phase(device, launches, res4=None, res=None):
                              for s in step), step
 
 
-def peak_render(label, scene, opts, device, need):
+def peak_render(label, scene, opts, device, need, **kw):
     """render_path with the peak device memory of its two renders:
-    (rgb, launches, first_s, wall_s, peak_bytes)."""
+    (rgb, launches, first_s, wall_s, peak_bytes; None on the CPU)."""
     import torch
+    if torch.device(device).type != "cuda":
+        return (*render_path(label, scene, opts, device, [], **kw), None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = render_path(label, scene, opts, device, need)
+    out = render_path(label, scene, opts, device, need, **kw)
     return (*out, torch.cuda.max_memory_allocated())
 
 
@@ -2897,6 +3064,206 @@ def shading_phases(device, launches, res):
     ref_render("config4_big/thinlens/ref",
                lambda r: cameras_text(c4_text, "thinlens", res=r),
                THINLENS_EXR, device, ["bvh_tiles"], (BAND_REL, BAND_MEAN))
+
+
+def bench6_fog_text(text):
+    """bench6's text with a thin homogeneous Volume filling the box."""
+    cut = text.rindex("WorldEnd")
+    return text[:cut] + (
+        'Volume "homogeneous" "color sigma_a" [0.05 0.05 0.05]\n'
+        '  "color sigma_s" [0.15 0.15 0.15] "point p0" [-1 -1 -1]\n'
+        '  "point p1" [1 1 1]\n') + text[cut:]
+
+
+def volume_phases(device, launches, res, res4=None, res3=None, spp3=None):
+    """Phase 36: volumes on the card.
+
+    config4_big/fog (fog_text: a homogeneous box over the terrain,
+    "single") at 512x512 x 4 spp, directlighting "all", through the tile
+    walk, and bench3/smoke (smoke_text: a 32^3 volumegrid, "single") at
+    256x256 x 32 spp in path mode through mt_best: each through the pool
+    (walls first and warm, peak memory, f32 readback), against the scan
+    driver per pixel (SCAN_TOL), the kernel against its plain version on
+    every k-th ray of the scan's largest any-hit call (a chunk's
+    single-scattering shadow rays), and at its reference's film, emission
+    only (VOL_REF_INTEGRATOR), within VOL_REF_REL, VOL_REF_MEAN of
+    tpuprt's image. bench6/fog (bench6_fog_text: photonmap, which leaves
+    the pool for the chunked driver over volumes): load -> maps -> render
+    timed, finite, peak memory, mt_best's launches. res4, res3, spp3
+    shrink the films for a rehearsal on the CPU (bench6/fog at res3)."""
+    import numpy as np
+    from tpuprt_torch import render as R
+    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch.scene.data import to_device
+    from tpuprt_torch.scene.parser import load_scene_string
+    with open(SCENE) as f:
+        c4 = f.read()
+    with open(BENCH3) as f:
+        b3 = f.read()
+    for label, text, need, ref, ref_text in (
+            ("config4_big/fog", fog_text(c4, res4), ["bvh_tiles"], FOG_EXR,
+             lambda r: fog_text(c4, res=r, integrator=VOL_REF_INTEGRATOR)),
+            ("bench3/smoke", smoke_text(b3, res3, spp3),
+             ["mt_best", "mt_best_any"], SMOKE_EXR,
+             lambda r: smoke_text(b3, res=r, spp=4,
+                                  integrator=VOL_REF_INTEGRATOR))):
+        t0 = time.perf_counter()
+        scene, opts = load_scene_string(text)
+        emit(phase="load", scene=label, seconds=time.perf_counter() - t0,
+             volumes=scene.volumes.count,
+             grids=list(scene.volumes.grids),
+             volume_integrator=opts.volume_integrator,
+             integrator=opts.integrator)
+        # f32 readback: the pool's image is held to the scan's per pixel.
+        opts = opts._replace(chunk_size=1 << 17)
+        alpha = []
+        rgb, launches[label], first_s, wall, peak = peak_render(
+            label, scene, opts, device, need, alpha=alpha)
+        spp = opts.sampler.pixelsamples
+        emit(phase="render", scene=label, shape=list(rgb.shape), spp=spp,
+             launches=launches[label], finite=True, first_render_s=first_s,
+             wall_s=wall, samples_per_s=opts.xres * opts.yres * spp / wall,
+             peak_device_bytes=peak, mean=float(rgb.mean()))
+        scan = opts._replace(driver="scan")
+        srgb, salpha, line = scan_render(f"{label}/scan", scene, scan,
+                                         device, need)
+        launches[f"{label}/scan"] = line["launches"]
+        emit(phase="scan", check="pool", tol=SCAN_TOL, **line,
+             **images_close(label, (rgb, alpha[0]), (srgb, salpha),
+                            SCAN_TOL, SCAN_ALPHA_TOL))
+        del rgb, srgb, salpha
+        # The largest any-hit call, a chunk's single-scattering march (32
+        # shadow rays a lane, step-major), taken from the scan (cheaper
+        # than the pool, the same kernel); every k-th ray, about 2^17.
+        if need == ["bvh_tiles"]:
+            rays = capture_rays(scene, scan, device, bvh_cuda,
+                                "traverse_tiles", 4)[True]
+            res["bvh_tiles"] += tiles_parity(
+                f"{label}/single", to_device(scene, device).accel,
+                rays[:, ::max(1, rays.shape[1] >> 17)].contiguous())
+        else:
+            rays = capture_rays(scene, scan, device, mt_cuda, "mt_best",
+                                0)[True]
+            res["mt_best"] += mt_parity(
+                f"{label}/single", mt_cuda.pack_table(to_device(
+                    scene, device).triangles),
+                rays[:, ::max(1, rays.shape[1] >> 17)].contiguous(),
+                modes=(True,))
+        del rays, scene
+        ref_render(f"{label}/ref", ref_text, ref, device, need,
+                   (VOL_REF_REL, VOL_REF_MEAN))
+
+    with open(BENCH6) as f:
+        b6 = film_text(bench6_fog_text(f.read()), res3)
+
+    def load_render():
+        t0 = time.perf_counter()
+        scene, opts = load_scene_string(b6)
+        out = R.render(scene, opts._replace(half_readback=True),
+                       device=device, stats=stats)
+        return out, opts, time.perf_counter() - t0
+    stats = {}
+    ((rgb, _), opts, _), launches["bench6/fog"], first_s, peak = counted(
+        device, load_render)
+    wall = load_render()[2]
+    counts = launches["bench6/fog"]
+    missing = unlaunched(device, counts, ["mt_best", "mt_best_any"])
+    emit(phase="render", scene="bench6/fog", shape=list(rgb.shape),
+         spp=opts.sampler.pixelsamples, driver="chunked",
+         preprocess_s=stats.get("preprocess_s"), launches=counts,
+         mt_best_nearest=counts["mt_best"] - counts["mt_best_any"],
+         mt_best_any=counts["mt_best_any"], finite=bool(
+             np.isfinite(rgb).all()), first_wall_s=first_s, wall_s=wall,
+         peak_device_bytes=peak)
+    assert not missing and np.isfinite(rgb).all(), missing
+
+
+def instancing_phases(device, launches, res, res4=None, n_rocks=N_ROCKS):
+    """Phase 37: the rest of instancing on the card.
+
+    rocks/loop: the rocks scene (N_ROCKS instances on config4_big's
+    terrain) with the rock a Loop subdivision surface (loop_rock, 1280
+    triangles) at 512x512 x 4 spp through the tile and instanced walks:
+    its prototype's tables bit-equal to the same scene's with the port's
+    tessellation written inline as a trianglemesh, the images within
+    LOOP_REL per pixel (the film's atomic adds). rocks/lamps: the rocks
+    and LAMPS instanced quad lamps (lamps_text; every LAMP_MIRROR-th
+    mirrored), directlighting "one" at 512x512 x 4 spp, held to the same
+    lamps written inline by LAMP_DIFF and LAMP_MAX; the instanced walk
+    against its plain version on every k-th ray of the render's largest
+    call (a pass's shadow and BSDF-strategy rays, nearest). res4, n_rocks
+    shrink the scene for a rehearsal on the CPU."""
+    import numpy as np
+    from tpuprt_torch.ops import bvh_cuda
+    from tpuprt_torch.scene.data import to_device
+    from tpuprt_torch.scene.parser import load_scene_string
+    with open(SCENE) as f:
+        base = film_text(f.read(), res4)
+    imgs, protos = {}, {}
+    for kind in ("loop", "inline"):
+        t0 = time.perf_counter()
+        scene, opts = load_scene_string(rocks_scene_text(
+            base, n_rocks, ROCK_SUBDIV, ROCK_SEED,
+            rock=loop_rock(inline=kind == "inline")))
+        load_s = time.perf_counter() - t0
+        opts = opts._replace(chunk_size=1 << 17)
+        label = "rocks/loop" + ("" if kind == "loop" else "/inline")
+        imgs[kind], launches[label], first_s, wall, peak = peak_render(
+            label, scene, opts, device, ["bvh_tiles", "bvh_instanced"])
+        emit(phase="render", scene=label, load_s=load_s,
+             proto_triangles=scene.instances.n_tris,
+             instances=scene.instances.count, shape=list(imgs[kind].shape),
+             launches=launches[label], first_render_s=first_s, wall_s=wall,
+             peak_device_bytes=peak)
+        assert scene.instances.n_tris == 1280
+        protos[kind] = (scene.instances.verts, scene.instances.idx,
+                        scene.instances.nodes)
+        del scene
+    # The prototype's vertices, triangles and BLAS bit-equal; the images
+    # equal up to the film's atomic adds, whose order the card does not
+    # fix (a pixel sums its samples in any order).
+    same = all(bool((a == b).all()) for a, b in zip(protos["loop"],
+                                                     protos["inline"]))
+    a, b = imgs["loop"], imgs["inline"]
+    err = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+    emit(phase="render", scene="rocks/loop", check="inline tessellation",
+         tables_bit_equal=same, values_differ=int((a != b).sum()),
+         max_rel_diff=err, limit=LOOP_REL)
+    assert same and err <= LOOP_REL, (same, err)
+
+    rocks = rocks_scene_text(base, n_rocks, ROCK_SUBDIV, ROCK_SEED)
+    for kind in ("instanced", "inline"):
+        t0 = time.perf_counter()
+        scene, opts = load_scene_string(lamps_text(
+            rocks, inline=kind == "inline"))
+        load_s = time.perf_counter() - t0
+        opts = opts._replace(chunk_size=1 << 17, direct_strategy="one")
+        label = "rocks/lamps" + ("" if kind == "instanced" else "/inline")
+        imgs[kind], launches[label], first_s, wall, peak = peak_render(
+            label, scene, opts, device, ["bvh_tiles", "bvh_instanced"])
+        emit(phase="render", scene=label, load_s=load_s,
+             lights=scene.lights.count,
+             area_geoms=list(scene.lights.area_geoms_present),
+             shape=list(imgs[kind].shape), launches=launches[label],
+             first_render_s=first_s, wall_s=wall, peak_device_bytes=peak,
+             mean=float(imgs[kind].mean()))
+        if kind == "instanced":
+            # A pass's shadow and BSDF-strategy rays go to one nearest
+            # walk (an area light must be named at the hit).
+            rays = capture_rays(scene, opts, device, bvh_cuda,
+                                "traverse_instanced", 7)[False]
+            res["bvh_instanced"] += instanced_parity(
+                f"{label}/shadow", to_device(scene, device).instances,
+                rays[:, ::max(1, rays.shape[1] >> 17)].contiguous())
+            del rays
+        del scene
+    a, b = imgs["instanced"], imgs["inline"]
+    diff = float(np.abs(a - b).mean() / b.mean())
+    top = float(abs(a.max() - b.max()) / b.max())
+    emit(phase="render", scene="rocks/lamps", check="inline lamps",
+         rel_mean_abs_diff=diff, limit=LAMP_DIFF, brightest_rel_diff=top,
+         brightest_limit=LAMP_MAX)
+    assert diff < LAMP_DIFF and top <= LAMP_MAX, (diff, top)
 
 
 def main(argv=None):
@@ -3381,6 +3748,14 @@ def main(argv=None):
     shading_phases(device, launches, res)
     emit(phase="shading", seconds=time.perf_counter() - t0)
 
+    # 36-37. Volumes and the rest of instancing.
+    t0 = time.perf_counter()
+    volume_phases(device, launches, res)
+    emit(phase="volumes", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    instancing_phases(device, launches, res)
+    emit(phase="instancing", seconds=time.perf_counter() - t0)
+
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
                "bvh_instanced": "rocks", "mt_best": "config4_big/none"}
@@ -3441,6 +3816,22 @@ def main(argv=None):
                 entry[f"{key}_launches_any_hit"] = \
                     launches[p]["bvh_tiles_any"]
             entry["light_sets"] = light_sets(rs, "config4_big/lit/")
+            # The volumes (phase 36) by mode, and the instanced scenes'
+            # top-level walk (phase 37).
+            for p in ("config4_big/fog", "config4_big/fog/scan",
+                      "rocks/loop", "rocks/lamps", "rocks/lamps/inline"):
+                key = p.replace("/", "_")
+                entry[f"{key}_launches"] = launches[p]["bvh_tiles"]
+                entry[f"{key}_launches_any_hit"] = \
+                    launches[p]["bvh_tiles_any"]
+            entry["volume_sets"] = light_sets(rs, "config4_big/fog/")
+        if name == "bvh_instanced":
+            # The Loop-subdivided rocks and the instanced lamps (phase
+            # 37), the lamps' set.
+            for p in ("rocks/loop", "rocks/lamps"):
+                entry[f"{p.replace('/', '_')}_launches"] = \
+                    launches[p]["bvh_instanced"]
+            entry["lamp_sets"] = light_sets(rs, "rocks/lamps/")
         if name == "mt_best":
             # bench3's path: its launches by mode and its camera set.
             b3_cam = next(r for r in rs if r["set"] == "bench3/camera")
@@ -3490,6 +3881,15 @@ def main(argv=None):
                 bench3_materials_launches_any_hit=launches[
                     "bench3/materials"]["mt_best_any"],
                 materials_sets=light_sets(rs, "bench3/materials/"),
+                # The volumes (phase 36): launches by mode, the set.
+                **{f"{p.replace('/', '_')}_launches": launches[p]["mt_best"]
+                   for p in ("bench3/smoke", "bench3/smoke/scan",
+                             "bench6/fog")},
+                **{f"{p.replace('/', '_')}_launches_any_hit":
+                   launches[p]["mt_best_any"]
+                   for p in ("bench3/smoke", "bench3/smoke/scan",
+                             "bench6/fog")},
+                volume_sets=light_sets(rs, "bench3/smoke/"),
                 # One boundary gradient of each FD scene (phase 32), by
                 # mode.
                 boundary_launches={

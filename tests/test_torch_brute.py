@@ -12,6 +12,9 @@ one-sided disk area light) with Accelerator "none", at 16x16 x 2 spp.
   each segment in its own mode without an accelerator, fused on a BVH.
 - The whole render matches tpuprt.render.
 - The accelerator policy, and what the slice does not cover raises.
+
+test_accelerator_policy's cases run in test_torch_brute_policy.py and
+test_torch_brute_refusals.py (no file holds more than ten cases).
 """
 import os
 import sys
@@ -249,7 +252,10 @@ def grid_mesh(n):
             f'  "point P" [{nums(v)}]\n')
 
 
-@pytest.mark.parametrize("accel, body, result", [
+# test_accelerator_policy's cases, split across test_torch_brute_policy.py
+# (which accelerator a file gets) and test_torch_brute_refusals.py (area
+# lights and objects) so no file holds more than ten cases.
+POLICY_CASES = [
     ("", MESH, None),                                 # auto, <= 64 prims
     ('Accelerator "none"', grid_mesh(30), None),
     ('Accelerator "anything"', MESH, None),
@@ -259,16 +265,26 @@ def grid_mesh(n):
     ('Accelerator "grid"', MESH, "grid"),
     ('Accelerator "kdtree"', MESH, "kdtree"),
     ('Accelerator "bvh"', 'Shape "sphere"\n' + MESH, "bvh"),
+]
+AREA_CASES = [
     # A mesh emitter parses (brute force); the case keeps its original id.
     pytest.param("", 'AreaLightSource "area"\n' + MESH, None,
                  id='-AreaLightSource "area"\n' + MESH +
                  '-area lights on shape'),
     ("", 'AreaLightSource "area"\nShape "cone"\n', "area lights on shape"),
     ("", 'AreaLightSource "goniometric"\n' + MESH, "not ported"),
-    ("", 'AreaLightSource "area"\nObjectBegin "o"\n' + MESH + 'ObjectEnd\n',
-     "instanced area emitters"),
-])
-def test_accelerator_policy(accel, body, result):
+    # An emissive object alone (never instanced) leaves the main aggregate
+    # empty; the case keeps its id from when the object itself raised.
+    pytest.param("", 'AreaLightSource "area"\nObjectBegin "o"\n' + MESH +
+                 'ObjectEnd\n', "without triangles or quadrics",
+                 id='-AreaLightSource "area"\nObjectBegin "o"\n' + MESH +
+                 'ObjectEnd\n-instanced area emitters'),
+]
+
+
+def check_policy(accel, body, result):
+    """BASE with `accel` and `body` builds the accelerator named by
+    `result` (None: none), or raises NotImplementedError matching it."""
     text = BASE.format(accel=accel, body=body)
     built = {None: type(None), "bvh": BvhAccel, "grid": GridAccel,
              "kdtree": KdTreeAccel}

@@ -13,6 +13,10 @@ terrain(50) scene (4802 triangles, ~790 nodes).
 
 The CUDA kernels themselves run only on a card: chip_smoke.py holds them
 against the plain versions there.
+
+The descent mirror on these scenes is in test_torch_bvh_descent.py; the
+builder's source, the deep tree, the stack sizing and the bindings in
+test_torch_bvh_builds.py (no file holds more than ten cases).
 """
 import dataclasses
 import os
@@ -35,7 +39,6 @@ from tpuprt.scene.parser import load_scene_string as jax_load  # noqa: E402
 from tpuprt_torch.accel import bvh_build  # noqa: E402
 from tpuprt_torch.ops import bvh_cuda  # noqa: E402
 from tpuprt_torch.scene.bridge import from_numpy_tables  # noqa: E402
-from tpuprt_torch.scene.data import BvhAccel  # noqa: E402
 from tpuprt_torch.scene.parser import load_scene_string  # noqa: E402
 
 
@@ -232,25 +235,6 @@ def test_render_copies_only_the_walked_format(scenes, monkeypatch):
     assert tscene.accel.nodes is not None
 
 
-def test_builder_source_is_tpuprts():
-    """The port builds its BVH from its own copy of tpuprt's native builder,
-    line for line in everything but comments, so the trees (and the tables
-    compared above) match; it builds its kernels from its own sources too."""
-    port = bvh_build.BVH_BUILD8_SRC
-    own = os.path.join(_ROOT, "tpuprt_torch")
-    for src in (port, bvh_cuda.KERNEL_SRC, bvh_cuda.ROWS_SRC):
-        assert os.path.commonpath([src, own]) == own and os.path.isfile(src)
-
-    def code(path):
-        with open(path) as f:
-            lines = (ln.split("//", 1)[0].rstrip() for ln in f)
-            return [ln for ln in lines if ln]
-
-    ref = code(os.path.join(_ROOT, "tpuprt", "native", "csrc",
-                            "bvh_build8.cpp"))
-    assert len(ref) > 100 and code(port) == ref
-
-
 # The descent both CUDA walks now take, as a plain torch mirror: an entered
 # interior node tests its children's boxes, enters the lowest hit and
 # keeps (node << 8) | the other hits on a per-ray stack, one entry a
@@ -428,147 +412,8 @@ def skip_link_children(nodes, nn):
     return out
 
 
-@pytest.mark.parametrize("tree", ["config4_big", "tiles_rejected", "deep"])
-def test_child_table_is_the_skip_link_children(scenes, monkeypatch, tree):
-    """accel/bvh_build.child_table (the table the tile walk descends by)
-    holds each node's children by rank as the skip links give them, and
-    the interior rows' own child ids (cols 8..15, indexed by the binary
-    path, which the row walk descends by) name the same children in the
-    same order, so both descents enter them in preorder: on config4_big's
-    tree, on the terrain's tree built when build_tiles rejects it, and on
-    chip_smoke's hand-built deep tree, whose depth is recorded."""
-    import chip_smoke
-    if tree == "config4_big":
-        bvh = load_scene_string(open(chip_smoke.SCENE).read())[0].accel
-        assert bvh.max_depth == 5
-    elif tree == "tiles_rejected":
-        monkeypatch.setattr(bvh_build, "MAX_TILE_DEPTH", 1)
-        bvh = bvh_build.build_bvh(scenes[1].triangles)
-        assert bvh.nodesT is None
-        assert torch.equal(bvh.child, scenes[1].accel.child)
-    else:
-        bvh = chip_smoke.deep_tree(chip_smoke.DEEP_LEVELS, 6)
-        assert bvh.max_depth == chip_smoke.DEEP_LEVELS
-        assert bvh_build.build_tiles(bvh.nodes.numpy(), np.zeros(
-            (bvh.n_nodes, 8), np.int32), bvh.n_nodes) is None
-    assert bvh.child.dtype == torch.int32
-    assert torch.equal(bvh.child, skip_link_children(bvh.nodes, bvh.n_nodes))
-    own = slot_children(bvh.nodes, torch.arange(bvh.n_nodes))
-    in_order = own.gather(1, (own < 0).int().argsort(dim=1, stable=True))
-    assert torch.equal(in_order, bvh.child.long())
-    assert int((bvh.child[:, 1] >= 0).sum()) > 5
-
-
 def _mirror_sets(tscene):
     import chip_smoke
     opts = load_scene_string(terrain_scene_text())[1]
     cam = chip_smoke.camera_rays(tscene, opts, "cpu")
     return {"camera": cam, "random": torch.from_numpy(make_rays(1200, 13))}
-
-
-@pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("walk", ["tiles", "rows"])
-def test_descent_mirror_is_bit_equal(scenes, walk, any_hit):
-    """The descent by child ids enters the nodes the skip-link walk enters,
-    in the same order, so its t and ids equal traverse_tiles_ref's /
-    traverse_rows_ref's bit for bit on the terrain's camera and random
-    rays, in both modes; it moves to fewer nodes than the cursor steps
-    (the tile walk: exactly the nodes the plain walk enters; the row walk:
-    those plus the children whose re-test on entry fails)."""
-    _, tscene = scenes
-    a = tscene.accel
-    for label, rays in _mirror_sets(tscene).items():
-        if walk == "tiles":
-            t0, id0, c = bvh_cuda.traverse_tiles_ref(
-                a.nodesT, a.nodeskip, a.nodemeta, rays, nn=a.n_nodes,
-                any_hit=any_hit, with_counts=True)
-            t1, id1, steps, entered, _ = descent_mirror(
-                a.nodesT, a.child, rays, a.n_nodes, any_hit, rows=False)
-            assert int(steps.sum()) == (c["slab"] + c["tri"]) // 8
-            cursor = c["steps"]
-        else:
-            t0, id0, c = bvh_cuda.traverse_rows_ref(
-                a.nodes, rays, nn=a.n_nodes, any_hit=any_hit,
-                with_counts=True)
-            t1, id1, steps, entered, _ = descent_mirror(
-                a.nodes, None, rays, a.n_nodes, any_hit, rows=True)
-            assert int(entered.sum()) == c["entered"]
-            cursor = c["slab"]
-        assert torch.equal(t0, t1) and torch.equal(id0, id1), label
-        assert int((id0 >= 0).sum()) > 100, label
-        assert int(steps.sum()) < cursor / 2, (label, steps.sum(), cursor)
-
-
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_descent_mirror_deep_tree(any_hit):
-    """On chip_smoke's hand-built 40-level tree the row walk's descent
-    needs more stack entries than the kernel keeps in local memory (the
-    scratch path, sized by rows_stack_scratch) and still equals
-    traverse_rows_ref bit for bit."""
-    import chip_smoke
-    bvh = chip_smoke.deep_tree(chip_smoke.DEEP_LEVELS, 6)
-    rays = torch.from_numpy(chip_smoke.deep_rays(1000, 7))
-    t0, id0 = bvh_cuda.traverse_rows_ref(bvh.nodes, rays, nn=bvh.n_nodes,
-                                         any_hit=any_hit)
-    t1, id1, _, _, deepest = descent_mirror(bvh.nodes, None, rays,
-                                            bvh.n_nodes, any_hit, rows=True)
-    assert torch.equal(t0, t1) and torch.equal(id0, id1)
-    assert int((id0 >= 0).sum()) > 300
-    assert bvh_cuda.ROWS_LOCAL_LEVELS < deepest <= bvh.max_depth
-    scratch = bvh_cuda.rows_stack_scratch(bvh.max_depth, 4, "cpu")
-    assert scratch.shape == (bvh.max_depth - bvh_cuda.ROWS_LOCAL_LEVELS, 4)
-
-
-def test_rows_stack_scratch_sizing(monkeypatch):
-    """The row walk's wrapper keeps ROWS_LOCAL_LEVELS stack levels in the
-    kernel's local memory and sizes a scratch tensor, by ray, for a deeper
-    tree's other levels (shown with the cap lowered to 3); the kernel's own
-    cap (bvh_rows.cu kLocalLevels) is the wrapper's."""
-    assert bvh_cuda.rows_stack_scratch(32, 10, "cpu") is None
-    monkeypatch.setattr(bvh_cuda, "ROWS_LOCAL_LEVELS", 3)
-    assert bvh_cuda.rows_stack_scratch(3, 10, "cpu") is None
-    s = bvh_cuda.rows_stack_scratch(40, 10, "cpu")
-    assert s.shape == (37, 10) and s.dtype == torch.int32
-    with open(bvh_cuda.ROWS_SRC) as f:
-        assert "constexpr int kLocalLevels = 32;" in f.read()
-
-
-def test_row_walk_needs_the_depth(scenes):
-    """traverse_rows sizes the kernel's stack from the tree's recorded depth
-    and refuses a BVH without one (BvhAccel.max_depth None); with it, the
-    front end on CPU tensors is the plain version's walk."""
-    import chip_smoke
-    _, tscene = scenes
-    a = tscene.accel
-    assert BvhAccel().max_depth is None
-    rays = torch.from_numpy(make_rays(300, 5))
-    with pytest.raises(ValueError, match="max_depth"):
-        bvh_cuda.traverse_rows(a.nodes, rays, nn=a.n_nodes, max_depth=None)
-    t, ids = bvh_cuda.traverse_rows(a.nodes, rays, nn=a.n_nodes,
-                                    max_depth=a.max_depth)
-    t0, id0 = bvh_cuda.traverse_rows_ref(a.nodes, rays, nn=a.n_nodes)
-    assert torch.equal(t, t0) and torch.equal(ids, id0)
-    deep = chip_smoke.deep_tree(chip_smoke.DEEP_LEVELS, 6)
-    assert deep.max_depth > bvh_cuda.ROWS_LOCAL_LEVELS
-
-
-def test_bindings_match_the_c_interfaces(monkeypatch):
-    """Each wrapper's ctypes argument types are the parameter types of its
-    C entry point in the checkout's source, in order (a pointer where the
-    source has one, an int where it has an int), so a changed interface
-    cannot be called with the old arguments. The library is stood in for
-    (no nvcc here): only the binding is held."""
-    import ctypes
-    import types
-    import chip_smoke
-    names = ("bvh_tiles_launch", "bvh_rows_launch", "bvh_instanced_launch")
-    monkeypatch.setattr(bvh_cuda, "build", lambda src: types.SimpleNamespace(
-        **{n: types.SimpleNamespace() for n in names}))
-    for src, name, entry in (
-            (bvh_cuda.KERNEL_SRC, names[0], bvh_cuda._tiles_entry),
-            (bvh_cuda.ROWS_SRC, names[1], bvh_cuda._rows_entry),
-            (bvh_cuda.ROWS_SRC, names[2], bvh_cuda._instanced_entry)):
-        params = chip_smoke.c_interface(src, name).split(", ")
-        assert entry().argtypes == [
-            ctypes.c_void_p if p.endswith("*") else ctypes.c_int
-            for p in params], name

@@ -15,6 +15,9 @@ interpret mode and its jnp walk for the main BVH.
 - intersect_ids and hit_geometry per ray, and the whole render, match.
 - What the slice does not cover raises NotImplementedError; render()
   without a device asks for the card.
+
+The refusals, the top-level BVH and the out-of-order walk are in
+test_torch_instances_top.py (no file holds more than ten cases).
 """
 import os
 import sys
@@ -34,7 +37,6 @@ from tpuprt.ops import bvh_pallas
 from tpuprt.samplers import samplers as jsmp
 from tpuprt.scene.parser import load_scene_string as jax_load
 from tpuprt_torch import render as torch_render
-from tpuprt_torch.accel import instances as inst_mod
 from tpuprt_torch.accel import intersect as tisect
 from tpuprt_torch.core import transform as tf
 from tpuprt_torch.ops import bvh_cuda
@@ -263,17 +265,10 @@ _OBJECT = ('ObjectBegin "thing"\n{body}ObjectEnd\n'
            'AttributeEnd\nWorldEnd\n')
 
 
-@pytest.mark.parametrize("body, message", [
-    ('AreaLightSource "area" "color L" [4 4 4]\n'
-     'Shape "trianglemesh" "integer indices" [0 1 2]\n'
-     '  "point P" [0 0 0  1 0 0  0 1 0]\n',
-     "instanced area emitters are not ported"),
-    ('Shape "sphere" "float radius" [0.2]\n', "quadric"),
-])
-def test_uncovered_objects_raise(body, message):
-    text = rocks_text().replace("WorldEnd", _OBJECT.format(body=body))
-    with pytest.raises(NotImplementedError, match=message):
-        load_scene_string(text)
+_EMITTER = ('AreaLightSource "area" "color L" [4 4 4]\n'
+            'Shape "trianglemesh" "integer indices" [0 1 2]\n'
+            '  "point P" [0 0 0  1 0 0  0 1 0]\n')
+_SPHERE = 'Shape "sphere" "float radius" [0.2]\n'
 
 
 def test_render_defaults_to_the_card(scenes, monkeypatch):
@@ -293,32 +288,6 @@ def top_children(top, n):
         kids.append(c)
         c = int(skip[c])
     return kids
-
-
-@pytest.mark.parametrize("n_boxes", [6, 500])
-def test_top_level_bvh_holds_every_entry_once(n_boxes):
-    """build_top's table: every entry in exactly one leaf slot, each node's
-    box containing its children's and its entries' boxes."""
-    rng = np.random.default_rng(n_boxes)
-    lo = rng.uniform(-1, 1, (n_boxes, 3)).astype(np.float32)
-    box = np.concatenate([lo, lo + rng.uniform(0, 0.1, (n_boxes, 3)),
-                          np.zeros((n_boxes, 2))], 1).astype(np.float32)
-    top = torch.from_numpy(inst_mod.build_top(box))
-    assert top.shape[1] == inst_mod.TOP_COLS
-    nprims = top[:, 7].long()
-    seen = torch.cat([top[n, 8:8 + int(nprims[n])] for n in
-                      range(top.shape[0]) if nprims[n] > 0]).long()
-    assert sorted(seen.tolist()) == list(range(n_boxes))
-    assert bool((top[nprims == 0, 8:] == -1).all())
-    b = torch.from_numpy(box)
-    for n in range(top.shape[0]):
-        inner = b[top[n, 8:8 + int(nprims[n])].long()] if nprims[n] > 0 \
-            else top[top_children(top, n)]
-        assert len(inner) > 0
-        assert bool((top[n, 0:3] <= inner[:, 0:3]).all())
-        assert bool((top[n, 3:6] >= inner[:, 3:6]).all())
-    if n_boxes > 8:
-        assert top.shape[0] > 1 and int(top[0, 6]) == top.shape[0]
 
 
 def ordered_walk(ti, rays, order):
@@ -359,42 +328,3 @@ def ordered_walk(ti, rays, order):
     inst = torch.where(hit, ti.entry_inst[best_e.clamp(max=ti.n_entries - 1)],
                        -1)
     return best_t, best_id, inst
-
-
-@pytest.mark.parametrize("order", ["top-level", "reversed"])
-def test_out_of_order_walk_keeps_the_earliest_entry(order):
-    """Rocks with every other instance repeated under the same transform
-    (exact ties between entries): visiting the entries in the top-level
-    BVH's leaf order, or backwards, with the kernel's tie rule gives the
-    plain version's t, ids and instances on every ray; the front end's call
-    gives them too."""
-    text = rocks_scene_text(rocks_text().split("ObjectBegin")[0] +
-                            "WorldEnd\n", 6, 1, 0, dup_every=2)
-    scene, _ = load_scene_string(text)
-    ti = scene.instances
-    assert (ti.count, ti.n_entries) == (9, 9)
-    rng = np.random.default_rng(11)
-    n = 2048
-    org = rng.uniform(-1.2, 1.2, (n, 3))
-    org[:, 1] = rng.uniform(0.3, 1.5, n)
-    rays = torch.from_numpy(rays_at_rocks(ti, org, n, 12))
-    w2o12 = ti.inst_w2o[:, :3, :].reshape(ti.count, 12).contiguous()
-    want = bvh_cuda.traverse_instanced_ref(
-        ti.nodes, ti.entry_block, ti.entry_inst, ti.entry_start,
-        ti.entry_stop, ti.entry_bbox, w2o12, rays, cap=ti.block_cap)
-    hit = want[1] >= 0
-    # The repeats (entries 6-8) never win: their originals (0, 2, 4) tie.
-    assert int(hit.sum()) > 500 and set(want[2][hit].tolist()) <= \
-        {0, 1, 2, 3, 4, 5}
-    top = ti.top_nodes
-    leaves = [int(e) for row in top for e in row[8:8 + int(row[7])]]
-    assert sorted(leaves) == list(range(9))
-    got = ordered_walk(ti, rays, leaves if order == "top-level" else
-                       list(range(9))[::-1])
-    for a, b in zip(want, got):
-        assert torch.equal(a, b)
-    o, d, mint, maxt = rays[0:3].T, rays[3:6].T, rays[6], rays[7]
-    t, code, h = inst_mod.intersect(ti, o, d, mint, maxt)
-    assert torch.equal(h, hit)
-    assert torch.equal(code[h], (want[2] * ti.n_tris + want[1])[hit])
-    assert torch.equal(t[h], want[0][hit])

@@ -17,6 +17,9 @@ infinite light added, at 16x16 x 2 spp.
   parser reads the debug integrator and the film's writefrequency.
 - A checkpointed and resumed render equals the straight one, and the
   partial image is written (the analogue of tests/test_operability.py:87).
+
+The debug Li is in test_torch_scan_debug.py, the driver's routing in
+test_torch_scan_routes.py (no file holds more than ten cases).
 """
 import os
 
@@ -35,8 +38,6 @@ from tpuprt.integrators import photonmap as jpm
 from tpuprt.scene.parser import load_scene_string as jax_load
 from tpuprt_torch import render as torch_render
 from tpuprt_torch.film import film as tfilm
-from tpuprt_torch.integrators import debug as tdebug
-from tpuprt_torch.integrators import path_wavefront as tpool
 from tpuprt_torch.integrators import photonmap as tpm
 from tpuprt_torch.scene.bridge import photon_maps_from_numpy
 from tpuprt_torch.scene.data import to_device
@@ -109,19 +110,6 @@ def test_scan_li_matches_tpuprt(scenes, integrator, strategy):
     tout = port_li(tscene, topts._replace(**kw), cam)
     per_sample_close(jout, tout)
     assert jout[0].max() > 0.5        # lit, and the light is seen
-
-
-@pytest.mark.parametrize("channels", [
-    ("u", "v", "hit"), ("nx", "ny", "nz"), ("snx", "sny", "snz"),
-    ("t", "one", "matid"), ("zero",)])
-def test_debug_li_matches_tpuprt(scenes, channels):
-    """Every channel of debug.li (tpuprt/integrators/debug.py:16-45); a
-    short tuple is padded with "zero"."""
-    jscene, jopts, tscene, topts, cam = scenes
-    assert set(tdebug.CHANNELS) >= set(channels)
-    kw = dict(integrator="debug", debug_channels=channels)
-    per_sample_close(tpuprt_li(jscene, jopts._replace(**kw), cam),
-                     port_li(tscene, topts._replace(**kw), cam))
 
 
 def surface_photons(tscene, n, seed):
@@ -214,39 +202,6 @@ def test_pool_matches_scan(strategy):
     assert np.isfinite(rgb_wf).all() and rgb_wf.max() > 0.1
     np.testing.assert_allclose(rgb_wf, rgb_scan, atol=2e-4, rtol=2e-4)
     np.testing.assert_allclose(alpha_wf, alpha_scan, atol=1e-5)
-
-
-@pytest.mark.parametrize("driver,integrator,ckpt,expect", [
-    ("auto", "path", False, "pool"), ("auto", "photonmap", False, "pool"),
-    ("auto", "directlighting", True, "scan"), ("auto", "debug", False,
-                                               "scan"),
-    ("auto", "igi", False, "scan"), ("scan", "whitted", False, "scan"),
-    ("wavefront", "whitted", True, "pool")])
-def test_driver_routes_as_tpuprt(monkeypatch, driver, integrator, ckpt,
-                                 expect):
-    """tpuprt/render.py:226-234: "auto" takes the pool for path,
-    directlighting, whitted and photonmap unless a checkpoint, a resume or
-    a writefrequency is asked for; "scan" never; "wavefront" always."""
-    scene, opts = load_scene_string(CORNELL_LIGHTS)
-    went = []
-    monkeypatch.setattr(tpool, "render",
-                        lambda *a, **k: went.append("pool"))
-    monkeypatch.setattr(torch_render, "render_chunked",
-                        lambda *a, **k: went.append("scan"))
-    torch_render.render(scene, opts._replace(driver=driver,
-                                             integrator=integrator),
-                        device="cpu",
-                        checkpoint_path="unused.npz" if ckpt else None)
-    assert went == [expect]
-    if integrator == "path":
-        went.clear()
-        torch_render.render(scene, opts._replace(integrator=integrator,
-                                                 writefrequency=64),
-                            device="cpu")
-        assert went == ["scan"]
-    with pytest.raises(ValueError, match="driver"):
-        torch_render.render(scene, opts._replace(driver="pool"),
-                            device="cpu")
 
 
 OPERABILITY = """

@@ -256,7 +256,9 @@ def hit_geometry(inst: InstanceTable, code, o, d, t):
     bad = (degen | ~has_n)[..., None]
     dndu = torch.where(bad, 0.0, dndu)
     dndv = torch.where(bad, 0.0, dndv)
+    # An emissive prototype's triangle is its instance's own light.
+    area_light = torch.where(inst.tri_emissive[tid],
+                             inst.inst_area_light[ii], -1).to(torch.int32)
     return dict(p=p, nn=nn, sn=ns, ss=ss, ts=ts, u=u, v=v,
                 dpdu=dpdu, dpdv=dpdv, dndu=dndu, dndv=dndv,
-                material=inst.material[tid],
-                area_light=torch.full_like(tid, -1).to(torch.int32))
+                material=inst.material[tid], area_light=area_light)

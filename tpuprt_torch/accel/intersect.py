@@ -231,7 +231,8 @@ def hit_geometry_light(scene: SceneData, prim_id, o, d, t):
             nn, area_light, material = nnq, q.area_light[qid], \
                 q.material[qid]
     if _has_instances(scene):
-        # Instanced hits carry no area light.
+        # An instanced hit's light: its instance's, on an emissive
+        # prototype.
         is_inst = pid >= base
         dg_i = inst_mod.hit_geometry(
             scene.instances, torch.clamp(prim_id - base, min=0), o, d, t)

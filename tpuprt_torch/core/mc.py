@@ -1,5 +1,5 @@
-"""Monte Carlo warps and the MIS heuristic (port of tpuprt/core/mc.py, the
-parts the port uses)."""
+"""Monte Carlo warps, the MIS heuristic and the phase functions (port of
+tpuprt/core/mc.py, the parts the port uses)."""
 from __future__ import annotations
 
 import math
@@ -76,6 +76,49 @@ def uniform_sample_cone_frame(u1, u2, costhetamax, x, y, z):
 def uniform_cone_pdf(costhetamax):
     """core/mc.cpp:159-161."""
     return 1.0 / (2.0 * math.pi * torch.clamp(1.0 - costhetamax, min=1e-8))
+
+
+def hg_pdf(costheta, g):
+    """The Henyey-Greenstein phase function, which is its own pdf
+    (core/volume.cpp PhaseHG; tpuprt/core/mc.py:127-131)."""
+    denom = 1.0 + g * g + 2.0 * g * costheta
+    return (1.0 / (4.0 * math.pi)) * (1.0 - g * g) / torch.clamp(
+        denom * torch.sqrt(torch.clamp(denom, min=1e-12)), min=1e-12)
+
+
+_INV_4PI = 1.0 / (4.0 * math.pi)
+
+
+def phase_isotropic(costheta):
+    """PhaseIsotropic (core/volume.cpp:28-30)."""
+    return torch.full_like(torch.as_tensor(costheta, dtype=torch.float32),
+                           _INV_4PI)
+
+
+def phase_rayleigh(costheta):
+    """PhaseRayleigh (core/volume.cpp:31-34)."""
+    return 3.0 / (16.0 * math.pi) * (1.0 + costheta * costheta)
+
+
+def phase_mie_hazy(costheta):
+    """PhaseMieHazy (core/volume.cpp:35-38)."""
+    return (0.5 + 4.5 * torch.pow(
+        torch.clamp(0.5 * (1.0 + costheta), min=0.0), 8.0)) * _INV_4PI
+
+
+def phase_mie_murky(costheta):
+    """PhaseMieMurky (core/volume.cpp:39-42)."""
+    return (0.5 + 16.5 * torch.pow(
+        torch.clamp(0.5 * (1.0 + costheta), min=0.0), 32.0)) * _INV_4PI
+
+
+def phase_schlick(costheta, g):
+    """PhaseSchlick (core/volume.cpp:49-56): Henyey-Greenstein's
+    approximation with k = 1.55 g - 0.55 g^3."""
+    k = 1.55 * g - 0.55 * g * g * g
+    kcos = k * costheta
+    return _INV_4PI * (1.0 - k * k) / torch.clamp(
+        (1.0 - kcos) * (1.0 - kcos), min=1e-12)
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):

@@ -28,6 +28,7 @@ from ..samplers import samplers
 from ..scene.data import (AREA_GEOM_QUADRIC, AREA_GEOM_TRIS, LIGHT_AREA,
                           LIGHT_INFINITE, QUADRIC_SPHERE, SceneData)
 from ..textures import graph as _tex
+from ..volumes import regions as vr
 
 _EPS = vm.RAY_EPSILON
 
@@ -180,6 +181,8 @@ def estimate_direct_multi(scene: SceneData, specs, p, n, wo,
     specs: list of dicts with light_id i32[N], ls1, ls2, ls3, bs1, bs2, bcs
     (sampler streams) and static_kind: the light's LIGHT_* kind when every
     lane samples the same light, else None (the kind is read per lane).
+    With volumes, the light-sampled radiance is attenuated by the shadow
+    segment's transmittance, jittered by ls3 (common.py:288-292).
     """
     lights = scene.lights
     has_area = LIGHT_AREA in lights.kinds_present
@@ -230,12 +233,16 @@ def estimate_direct_multi(scene: SceneData, specs, p, n, wo,
         light_id = sp["light_id"]
         kind = lights.kind[light_id] if sp["static_kind"] is None \
             else sp["static_kind"]
-        wi, light_pdf = smp["wi"], smp["pdf"]
+        wi, light_pdf, Li = smp["wi"], smp["pdf"], smp["Li"]
         unocc = rec["need_vis"] & ~vis[rec["seg1"]]
+        if vr.present(scene.volumes):
+            Li = Li * vr.transmittance(scene.volumes, p, wi,
+                                       torch.full_like(light_pdf, _EPS),
+                                       smp["vis_maxt"], sp["ls3"])
         bsdf_pdf = B.pdf(bsdf, wo, wi, B.ALL & ~B.SPECULAR)
         w_mis = torch.where(smp["delta"], 1.0,
                             mc.power_heuristic(1.0, light_pdf, 1.0, bsdf_pdf))
-        contrib = rec["f_val"] * smp["Li"] * (
+        contrib = rec["f_val"] * Li * (
             vm.absdot(wi, n) * w_mis /
             torch.clamp(light_pdf, min=1e-20))[..., None]
         Ldi = torch.where(unocc[..., None], contrib, 0.0)

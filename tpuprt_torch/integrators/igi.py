@@ -40,6 +40,7 @@ from ..bsdf import bsdf as B
 from ..core import rng, spectrum as spec, vecmath as vm
 from ..lights import emission, lights as lt
 from ..scene.data import SceneData
+from ..volumes import regions as vr
 from . import common
 
 _EPS = vm.RAY_EPSILON
@@ -88,7 +89,6 @@ def build_virtual_lights(scene: SceneData, prm: IgiParams,
         return VirtualLights(p=z, n=z, Le=z, valid=torch.zeros(
             (1, 1), dtype=torch.bool, device=dev), n_paths=torch.ones(
                 (), device=dev))
-    lt.check(scene.lights)
     # The power CDF (igi.cpp:103-117): Distribution1D over luminance.
     func = spec.luminance(lt.power(scene))
     nl = scene.lights.count
@@ -119,6 +119,11 @@ def build_virtual_lights(scene: SceneData, prm: IgiParams,
                                           *common.live_window(alive))
         alive = alive & hit & torch.any(alpha > 0.0, -1)
         dg = isect.hit_geometry(scene, pid, o, d, t)
+        if vr.present(scene.volumes):
+            # The path's power attenuated along the segment (igi.py:93-97).
+            alpha = alpha * vr.transmittance(
+                scene.volumes, o, d, torch.full_like(t, _EPS), t,
+                rng.uniform(sh, i, depth, 0x7A))
         bsdf = common.make_bsdf_at(scene, dg)
         # VirtualLight(p, nn, alpha * rho / pi) (igi.cpp:135-141).
         outs.append((dg["p"], dg["nn"],

@@ -5,8 +5,10 @@ a specular bounce only (escaped rays' infinite lights and area lights
 alike), one light sampled with MIS (common.direct_ld "one"), the full BSDF
 continuation (purposes 20, 21) and Russian roulette with probability 0.5
 from bounce 3 on. The live lanes are compacted after the hit and after
-the continuation, which changes no sample's value. The pool's mode "path"
-computes the same samples."""
+the continuation, which changes no sample's value. With volumes, each
+segment after the camera's is attenuated by its transmittance (path.py:
+53-64; the camera segment's is the driver's, render.compose_volumes). The
+pool's mode "path" computes the same samples."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +19,7 @@ from ..core import rng, vecmath as vm
 from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import SceneData
+from ..volumes import regions as vr
 from . import common
 
 SALT = 0xBA5E    # the per-pixel hash's salt (path.py:39)
@@ -45,6 +48,12 @@ def li(scene: SceneData, o, d, mint, maxt, cfg, px, py, s_idx,
                              common.live_window(live)))
         if first:
             t_first = torch.where(hit, t, maxt)
+        elif vr.present(scene.volumes):
+            # The segment to the hit, or to the window's end on a miss.
+            tp = tp * vr.transmittance(
+                scene.volumes, ro, rd, torch.full_like(t, vm.RAY_EPSILON),
+                torch.where(hit, t, 1e30),
+                rng.uniform(ph[idx], s_idx[idx], bounce, 0x77))
         if scene.lights.infinite_meta:
             take_le = ~hit & (first | specular)
             Lesc = lt.le_escaped(scene, rd)

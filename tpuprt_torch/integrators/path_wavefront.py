@@ -21,6 +21,15 @@ photonmap.cpp:299-431: Le at every hit, at every vertex the photon maps'
 radiance core (integrators/photonmap.photon_radiance: all lights' direct
 lighting, the caustic map, the indirect map or the final gather), and the
 specular-only continuation.
+
+Volumes (path_wavefront.py:219-261) compose as the chunked driver does
+(render.compose_volumes): on bounce 0 the camera segment's transmittance
+multiplies the throughput before any radiance is added, and the volume
+integrator's Lv is added once; in mode "path" every later segment is
+attenuated too (path.cpp:89). Both are computed on the lanes they apply to
+only: Lv, whose single-scattering march costs 32 shadow rays a lane, on
+the live bounce-0 lanes, each of whose draws is keyed by (pixel, sample,
+step, purpose), so no sample's value changes.
 """
 from __future__ import annotations
 
@@ -37,7 +46,8 @@ from ..film import film as film_mod
 from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import LIGHT_AREA, SceneData
-from . import common, photonmap
+from ..volumes import regions as vr
+from . import common, photonmap, volume
 
 _EPS = vm.RAY_EPSILON
 # Each mode's salt of the per-pixel hash (path_wavefront.py:220-221).
@@ -68,15 +78,39 @@ def _regen(scene: SceneData, cfg, lin, seed, xres, yres, xstart, xcount,
                 ry_d=d_ry)
 
 
+def _volumes(scene: SceneData, st, t, hit, alive, first, ph, seed, path,
+             vol_integrator):
+    """The pass's volume terms (the module's docstring): (throughput, L)
+    with the segments' transmittance and bounce 0's Lv."""
+    seg_end = torch.where(hit, t, st["maxt"])
+    ph_cam = rng.hash_u32(st["px"], st["py"], seed, 0xF0)
+    u_cam = rng.uniform(ph_cam, st["s_idx"], 0x7A)
+    u = torch.where(first, u_cam, rng.uniform(
+        ph, st["s_idx"], st["bounce"], 0x77)) if path else u_cam
+    k = torch.nonzero(alive if path else first & alive).squeeze(1)
+    tp = st["throughput"].clone()
+    tp[k] = tp[k] * vr.transmittance(scene.volumes, st["o"][k], st["d"][k],
+                                     st["mint"][k], seg_end[k], u[k])
+    k = torch.nonzero(first & alive).squeeze(1)
+    seg = (st["o"][k], st["d"][k], st["mint"][k], seg_end[k])
+    Lv = volume.li_single(scene, *seg, ph_cam[k], st["s_idx"][k], seed) \
+        if vol_integrator == "single" else \
+        volume.li_emission(scene, *seg, u_cam[k])
+    L = st["L"].clone()
+    L[k] = L[k] + Lv
+    return tp, L
+
+
 def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
           xres, yres, xstart, xcount, ystart, spp, filter_kind,
           filter_xwidth, filter_ywidth, mode, strategy="all", sel=None,
-          maps=None, prm=None):
+          maps=None, prm=None, vol_integrator="emission"):
     """One wavefront pass (path_wavefront.py:181-420) in `mode` ("path",
     "directlighting" with its `strategy` and, for "weighted", the light
     distribution `sel`, "whitted" or "photonmap", whose PhotonMaps and
-    PhotonParams are `maps` and `prm`): bounce every live lane once, splat +
-    regenerate finished lanes. Returns (state, cursor)."""
+    PhotonParams are `maps` and `prm`) with the volume integrator
+    `vol_integrator`: bounce every live lane once, splat + regenerate
+    finished lanes. Returns (state, cursor)."""
     alive = st["alive"]
     px, py, s_idx, bounce = st["px"], st["py"], st["s_idx"], st["bounce"]
     ro, rd = st["o"], st["d"]
@@ -87,6 +121,10 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     ph = rng.hash_u32(px, py, seed, SALTS[mode])
 
     t, pid, hit = isect.intersect_ids(scene, ro, rd, st["mint"], st["maxt"])
+
+    if vr.present(scene.volumes):
+        throughput, L = _volumes(scene, st, t, hit, alive, first, ph, seed,
+                                 path, vol_integrator)
 
     if scene.lights.infinite_meta:
         # Escape radiance on a miss of a live lane: in path mode only on
@@ -240,7 +278,6 @@ def render(scene: SceneData, opts, device, maps=None):
         raise NotImplementedError(
             f'integrator "{opts.integrator}" has no wavefront pool (path, '
             'directlighting, whitted and photonmap have)')
-    lt.check(scene.lights)    # once per render: it reads a table
     strategy = opts.direct_strategy
     # "weighted" picks by the lights' power, its distribution built once a
     # render (tpuprt builds it at every pass, with the same result).
@@ -273,7 +310,8 @@ def render(scene: SceneData, opts, device, maps=None):
                            filter_xwidth=opts.filter_xwidth,
                            filter_ywidth=opts.filter_ywidth,
                            mode=opts.integrator, strategy=strategy, sel=sel,
-                           maps=maps, prm=prm, **kw)
+                           maps=maps, prm=prm,
+                           vol_integrator=opts.volume_integrator, **kw)
         if not bool(st["alive"].any()):
             break
     rgb, alpha = film_mod.develop(film)

@@ -42,8 +42,9 @@ from ..accel.photon_grid import (PhotonGrid, build_photon_grid,
                                  gather_photons, block_rows)
 from ..bsdf import bsdf as B
 from ..core import rng, vecmath as vm
-from ..lights import emission, lights as lt
+from ..lights import emission
 from ..scene.data import SceneData
+from ..volumes import regions as vr
 from . import common
 
 _EPS = vm.RAY_EPSILON
@@ -111,6 +112,11 @@ def shoot_batch(scene: SceneData, base: int, n: int, depth_bound: int,
         t, pid, hit = isect.intersect_ids(scene, o, d, mint, maxt)
         alive = alive & hit
         dg = isect.hit_geometry(scene, pid, o, d, t)
+        if vr.present(scene.volumes):
+            # The photon's power attenuated along the segment
+            # (photonmap.py:109-114).
+            alpha = alpha * vr.transmittance(
+                scene.volumes, o, d, mint, t, rng.uniform(ph, depth, 0x7A))
         bsdf = common.make_bsdf_at(scene, dg)
         nspec = B.num_components(bsdf, B.SPECULAR | B.REFLECTION |
                                  B.TRANSMISSION)
@@ -200,8 +206,6 @@ def build_maps(scene: SceneData, prm: PhotonParams, seed: int = 0,
     rad = []
     shoot_s, host_s = [], []
     shot = 0
-    if scene.lights.count and any(targets.values()):
-        lt.check(scene.lights)
     while scene.lights.count and any(targets.values()) and \
             shot < prm.max_shot:
         t0 = time.perf_counter()

@@ -1,6 +1,5 @@
 """Photon emission: Light::Sample_L(scene, u1..u4, ray, pdf) for a wavefront
-(port of tpuprt/lights/emission.py for every light kind but instanced
-emitters). Per kind:
+(port of tpuprt/lights/emission.py). Per kind:
 
   point:       o = the light's position, d uniform over the sphere, pdf
                1/4pi, Le = I (point.cpp:70-77)
@@ -12,8 +11,9 @@ emitters). Per kind:
   distant:     o on the disk of the world's bounding sphere (radius r x
                1.01) across the light's direction, d = that direction, pdf
                1/(pi r^2) (distant.cpp:74-93)
-  area:        a point on the sphere, disk, cylinder or triangle mesh by
-               area (a mesh's triangle picked by the fifth uniform), d
+  area:        a point on the sphere, disk, cylinder, triangle mesh or
+               instanced prototype by area (a mesh's triangle picked by
+               the fifth uniform; lights.sample_area_mesh), d
                uniform over the sphere and flipped to the normal's side, pdf
                (1/area) / 2pi (area.cpp:83-92)
   infinite:    the chord between two uniform points of the bounding sphere,
@@ -27,7 +27,7 @@ import math
 import torch
 
 from ..core import mc, transform as tf, vecmath as vm
-from ..scene.data import (AREA_GEOM_QUADRIC, AREA_GEOM_TRIS, LIGHT_AREA,
+from ..scene.data import (AREA_GEOM_QUADRIC, LIGHT_AREA,
                           LIGHT_DISTANT, LIGHT_INFINITE,
                           LIGHT_PROJECTION, LIGHT_SPOT, QUADRIC_DISK,
                           QUADRIC_SPHERE, SceneData)
@@ -134,12 +134,7 @@ def sample_emission(scene: SceneData, light_id, u1, u2, u3, u4, u5):
             ps, ns = _sample_quadric_area(scene, light_id, u1, u2)
         else:
             ps, ns = o, torch.zeros_like(o)
-        if AREA_GEOM_TRIS in geoms:
-            ps_t, ns_t = lt._sample_area_tris(scene, light_id, u1, u2, u5)
-            quad = (lights.area_geom_kind[light_id] ==
-                    AREA_GEOM_QUADRIC)[..., None]
-            ps = torch.where(quad, ps, ps_t)
-            ns = torch.where(quad, ns, ns_t)
+        ps, ns = lt.sample_area_mesh(scene, light_id, u1, u2, u5, ps, ns)
         da = mc.uniform_sample_sphere(u3, u4)
         da = torch.where(vm.dot(da, ns)[..., None] < 0.0, -da, da)
         sel = kind == LIGHT_AREA

@@ -38,7 +38,6 @@ import torch.distributed as dist
 from .. import render as R
 from ..cameras import cameras as cam_mod
 from ..film import film as film_mod
-from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import SceneData, to_device
 
@@ -155,7 +154,6 @@ def render_sharded(scene: SceneData, opts: R.RenderOptions,
     device = mesh.device
     R.require_device("render_sharded()", device)
     scene = R.on_device(scene, device)
-    lt.check(scene.lights)
     aux = R.preprocess(scene, opts)
     film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)

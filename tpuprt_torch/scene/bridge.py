@@ -5,9 +5,10 @@ nested dicts of numpy arrays, becomes a port SceneData.
 fields (arrays as numpy, static fields as they are), a NamedTuple (texture
 node metadata) becomes a dict of its fields. tpuprt's tuple of image
 pyramids becomes the port's packed ImageTable (scene/build.pack_images),
-its importance tables EnvDists. Fields the port's tables do not have must
-be empty (no volumes); the accelerator is a BVH, a uniform grid, a kd-tree
-or none (brute force).
+its importance tables EnvDists, its tuple of density grids the packed
+column of the port's VolumeTable (scene/build.volume_table). Fields the
+port's tables do not have must be empty; the accelerator is a BVH, a
+uniform grid, a kd-tree or none (brute force).
 Anything else raises NotImplementedError. The BVH's rows are padded to 128 columns, as the port
 stores them, and get the port's child-id table and depth
 (accel/bvh_build.child_table); an instance table gets the port's top-level
@@ -30,17 +31,21 @@ from ..accel.bvh_build import child_table, pad_rows, tree_links
 from ..accel.instances import build_top
 from ..textures.graph import TexGraph, TexNodeMeta
 from . import data as D
-from .build import pack_images
+from .build import pack_images, volume_table
 from .data import to_device
 
 _NESTED = {"triangles": D.TriangleTable, "materials": D.MaterialTable,
            "textures": TexGraph, "lights": D.LightTable,
            "camera": D.CameraData, "accel": D.BvhAccel,
-           "instances": D.InstanceTable, "quadrics": D.QuadricTable}
+           "instances": D.InstanceTable, "quadrics": D.QuadricTable,
+           "volumes": D.VolumeTable}
 # Fields that feed only tpuprt's TPU paths, which the port's kernels never
 # read: the BVH's leaf prim-id table and per-node boxes (its jnp and chunked
 # walks).
 _TPU_ONLY = {D.BvhAccel: ("prim_ids", "selfbb")}
+# tpuprt's trace-time flags the port reads from its tables instead: the
+# light table's instanced emitters (LightTable.area_geoms_present).
+_DERIVED = {D.LightTable: ("inst_area",)}
 
 
 def _empty(v) -> bool:
@@ -54,7 +59,17 @@ def _empty(v) -> bool:
 def _build(cls, d: dict, device, where: str):
     names = {f.name for f in dataclasses.fields(cls)}
     extra = [k for k, v in d.items() if k not in names and not _empty(v)]
-    extra = [k for k in extra if k not in _TPU_ONLY.get(cls, ())]
+    extra = [k for k in extra if k not in _TPU_ONLY.get(cls, ()) +
+             _DERIVED.get(cls, ())]
+    if cls is D.VolumeTable:
+        vol = volume_table([dict(
+            kind=d["kind"][r], w2v=d["w2v"][r], v2w=d["v2w"][r],
+            lo=d["bound_lo"][r], hi=d["bound_hi"][r],
+            sigma_a=d["sigma_a"][r], sigma_s=d["sigma_s"][r], le=d["le"][r],
+            g=d["g"][r], params=d["params"][r], updir=d["updir"][r],
+            density=(d["density"] or (None,) * d["count"])[r])
+            for r in range(d["count"])])
+        return to_device(vol, device)
     if cls is D.BvhAccel:
         depth, rank, parent = tree_links(d["nodes"], d["n_nodes"])
         d = dict(d, nodes=pad_rows(d["nodes"]),

@@ -30,8 +30,8 @@ LIGHT_INFINITE = 4
 LIGHT_PROJECTION = 5
 LIGHT_GONIOMETRIC = 6
 
-# Area-light geometry kinds (the port samples quadrics and triangle sets;
-# instanced emitters are not ported).
+# Area-light geometry kinds: a quadric, a triangle set, or an instanced
+# prototype's emissive triangles under one instance's transform.
 AREA_GEOM_QUADRIC = 0
 AREA_GEOM_TRIS = 1
 AREA_GEOM_INST = 2
@@ -39,6 +39,10 @@ AREA_GEOM_INST = 2
 CAMERA_PERSPECTIVE = 0
 CAMERA_ORTHOGRAPHIC = 1
 CAMERA_ENVIRONMENT = 2
+
+VOL_HOMOGENEOUS = 0
+VOL_EXPONENTIAL = 1
+VOL_GRID = 2
 
 
 @dataclass
@@ -150,9 +154,12 @@ class LightTable:
     direction in [0:3]; a projection light's [p00, p11, 0, 0, screen x0,
     x1, y0, y1]. ``image``: the map of an infinite, projection or
     goniometric light, -1 for none. An area light's geometry is the
-    quadric ``area_first`` (AREA_GEOM_QUADRIC) or the ``area_count``
+    quadric ``area_first`` (AREA_GEOM_QUADRIC), the ``area_count``
     triangles from ``area_first`` (AREA_GEOM_TRIS, picked by the area CDF
-    at ``area_cdf[cdf_offset:]``), of total area ``area_total_area``."""
+    at ``area_cdf[cdf_offset:]``), or the ``area_count`` prototype
+    triangles from ``area_first`` of the instance table under ``l2w``, the
+    instance's transform (AREA_GEOM_INST; ``params[5]`` the sign of its
+    determinant), of total area ``area_total_area``."""
     kind: torch.Tensor         # i32[L]
     l2w: torch.Tensor          # f32[L,4,4]
     w2l: torch.Tensor          # f32[L,4,4]
@@ -174,6 +181,36 @@ class LightTable:
     dir_map_meta: Tuple = ()    # (light id, image id) of mapped projection
                                 # and goniometric lights
     max_area_count: int = 1
+
+
+@dataclass
+class VolumeTable:
+    """Volume regions (pbrt-v1 volumes/{homogeneous,exponential,
+    volumegrid}.cpp; tpuprt/scene/data.py:225-240): kind VOL_*, the world
+    -> unit-box transform ``w2v`` over the region's [p0, p1] and its
+    inverse, the world AABB, sigma_a, sigma_s and Le (scaled by the
+    density), the HG asymmetry g, ``params`` [a, b, 0, 0] of the
+    exponential density a exp(-b h) along ``updir``. The density grids
+    are packed in one column: region r's nz x ny x nx grid (z-major) is
+    ``density[grid_off[r]:]``, its dimensions ``grid_dims[r]``; the host
+    tuple ``grids`` lists (r, offset, nz, ny, nx) of each region with
+    one."""
+    kind: torch.Tensor         # i32[R]
+    w2v: torch.Tensor          # f32[R,4,4]
+    v2w: torch.Tensor          # f32[R,4,4]
+    bound_lo: torch.Tensor     # f32[R,3] world AABB
+    bound_hi: torch.Tensor     # f32[R,3]
+    sigma_a: torch.Tensor      # f32[R,3]
+    sigma_s: torch.Tensor      # f32[R,3]
+    le: torch.Tensor           # f32[R,3]
+    g: torch.Tensor            # f32[R]
+    params: torch.Tensor       # f32[R,4]
+    updir: torch.Tensor        # f32[R,3]
+    density: torch.Tensor      # f32[sum of nz*ny*nx] (f32[1] when none)
+    grid_off: torch.Tensor     # i64[R], -1 without a grid
+    grid_dims: torch.Tensor    # i32[R,3] (nz, ny, nx)
+    grids: Tuple = ()
+    count: int = 0
 
 
 @dataclass
@@ -265,9 +302,9 @@ class InstanceTable:
     object space, each with its own BLAS (rows as in BvhAccel.nodes, leaf
     prim ids global prototype-triangle ids), one transform per instance,
     and a top-level BVH over the traversal entries. Built by
-    accel/instances.build_instances. Instanced area emitters are not
-    ported: ``tri_emissive`` is all False and ``inst_area_light`` all
-    -1."""
+    accel/instances.build_instances. Instanced area emitters: the
+    prototype triangles of an emissive prototype are ``tri_emissive``,
+    and each instance's light row is ``inst_area_light`` (-1: none)."""
     verts: torch.Tensor        # f32[V,3] object space, all prototypes
     idx: torch.Tensor          # i32[T,3]
     uv: torch.Tensor           # f32[V,2]
@@ -316,6 +353,7 @@ class SceneData:
     tris_packed: torch.Tensor = None
     images: ImageTable = None        # the MIP pyramids, or None
     env_importance: Tuple = ()       # EnvDist per infinitesample light
+    volumes: VolumeTable = None      # the volume regions, or None
     world_bound_lo: torch.Tensor = None  # f32[3]
     world_bound_hi: torch.Tensor = None
 

@@ -1,28 +1,41 @@
 """pbrt scene-description parser + API state machine (port of
-tpuprt/scene/parser.py for the statements the port renders).
+tpuprt/scene/parser.py).
 
 Statements: Film, LookAt, Camera "perspective" (with a thin lens),
 "orthographic" and "environment" with the shutter times, Sampler,
 PixelFilter "box", "triangle", "gaussian", "mitchell" (pbrt-v1's default)
 and "sinc" (their widths; the shape parameters keep tpuprt's defaults),
-SurfaceIntegrator "directlighting", "path", "whitted" and "photonmap",
-Accelerator (with the kd-tree's SAH knobs), WorldBegin/End,
-AttributeBegin/End,
-TransformBegin/End, Transform, ConcatTransform, Translate/Rotate/Scale,
-ReverseOrientation, Texture of every class tpuprt reads (constant, scale,
-mix, bilerp, uv, checkerboard in 2D and 3D, dots, fbm, wrinkled, windy,
-marble, imagemap; any other class a constant 0.5 gray, as tpuprt's),
-Material of all fourteen kinds (matte, plastic, glass, mirror, shinymetal,
-substrate, translucent, uber and the six measured BRDFs) with a "bumpmap",
-LightSource "point", "spot", "distant", "infinite" and "infinitesample"
-(with or without a "mapname"), "projection" and "goniometric",
-AreaLightSource "area" on a sphere, disk, cylinder or triangle mesh, Shape
-"trianglemesh" and the six quadrics (sphere, cylinder, disk, cone,
-paraboloid, hyperboloid), and ObjectBegin/ObjectEnd/ObjectInstance of
-non-emissive triangle meshes (ray-transform instancing). Anything else
-raises NotImplementedError naming what is missing. Image files (an
-imagemap's "filename", a light's "mapname") are read relative to the
-scene file's directory, as tpuprt reads them.
+SurfaceIntegrator "directlighting", "path", "whitted", "debug",
+"photonmap", "exphotonmap", "igi", "irradiancecache" and "bidirectional",
+VolumeIntegrator "emission" and "single" (any other name reads as
+"emission", as tpuprt reads it), Accelerator (with the kd-tree's SAH
+knobs), WorldBegin/End, AttributeBegin/End, TransformBegin/End, Transform,
+ConcatTransform, Translate/Rotate/Scale, ReverseOrientation, Texture of
+every class tpuprt reads (constant, scale, mix, bilerp, uv, checkerboard in
+2D and 3D, dots, fbm, wrinkled, windy, marble, imagemap; any other class a
+constant 0.5 gray, as tpuprt's), Material of all fourteen kinds (matte,
+plastic, glass, mirror, shinymetal, substrate, translucent, uber and the
+six measured BRDFs) with a "bumpmap", LightSource "point", "spot",
+"distant", "infinite" and "infinitesample" (with or without a "mapname"),
+"projection" and "goniometric", AreaLightSource "area" on a sphere, disk,
+cylinder or triangle mesh (a tessellated shape is one), Shape
+"trianglemesh", "loopsubdiv", "nurbs", "heightfield" (tessellated at
+load, scene/tessellate.py) and the six quadrics (sphere, cylinder, disk,
+cone, paraboloid, hyperboloid), Volume "homogeneous", "exponential" and
+"volumegrid", and ObjectBegin/ObjectEnd/ObjectInstance of any of those
+shapes, emitters included, routed as tpuprt routes them
+(tpuprt/scene/parser.py:378-437): a mesh-kind shape becomes a shared
+prototype placed by ray-transform instancing, an emissive one only under
+a similarity transform (each placement its own light); every other shape
+is folded into a row of its own table under the instance's transform.
+What raises NotImplementedError: a statement outside that list (Include,
+CoordinateSystem, CoordSysTransform, MakeNamedMaterial and the like), an
+area light on a cone, paraboloid or hyperboloid, an AreaLightSource other
+than "area", an unknown Camera, PixelFilter, SurfaceIntegrator, Material
+or LightSource, and a scene without lights or without a triangle or
+quadric outside its instances. Image files (an imagemap's "filename", a
+light's "mapname") are read relative to the scene file's directory, as
+tpuprt reads them.
 
 Bracketed number lists are converted with numpy in one call per list, not
 per token, so a multi-megabyte mesh parses in seconds. Values go through
@@ -50,9 +63,12 @@ from ..materials.factory import MATERIAL_KINDS
 from ..samplers.samplers import SamplerConfig
 from ..textures.graph import TexNodeMeta
 from . import data as D
-from .build import SceneBuilder
+from .build import SceneBuilder, is_similarity
+from .tessellate import tessellate
 
 _TOKEN_RE = re.compile(r'"([^"]*)"|\[|\]|([^\s"\[\]]+)')
+# The shapes that become triangle meshes, and so may be a prototype.
+MESH_KINDS = ("trianglemesh", "loopsubdiv", "nurbs", "heightfield")
 
 
 def tokenize(text: str):
@@ -206,9 +222,11 @@ class PbrtParser:
         self.filter_params = ParamSet({})
         self.integrator_name = "directlighting"
         self.integrator_params = ParamSet({})
-        # Object name -> its recorded triangle meshes (params, ctm,
-        # [material, material id]); (object, mesh index) -> prototype id, so
-        # the instances of one object share one prototype BLAS.
+        self.volume_integrator_name = "emission"
+        # Object name -> its recorded shapes (kind, params, ctm, graphics
+        # state ([material, material id], area light, reverse
+        # orientation)); (object, shape index) -> prototype id, so the
+        # instances of one object share one prototype BLAS.
         self.objects: Dict[str, list] = {}
         self.current_object = None
         self._proto_cache: Dict[Tuple[str, int], int] = {}
@@ -270,6 +288,12 @@ class PbrtParser:
         elif name == "SurfaceIntegrator":
             self.integrator_name = ts.next()[1]
             self.integrator_params = ts.params()
+        elif name == "VolumeIntegrator":
+            self.volume_integrator_name = ts.next()[1]
+            ts.params()
+        elif name == "Volume":
+            kind = ts.next()[1]
+            self._make_volume(kind, ts.params())
         elif name == "Accelerator":
             self.builder.accel_kind = ts.next()[1]
             params = ts.params()
@@ -296,9 +320,6 @@ class PbrtParser:
         elif name == "LightSource":
             self._make_light(ts.next()[1], ts.params())
         elif name == "AreaLightSource":
-            if self.current_object is not None:
-                raise NotImplementedError(
-                    "instanced area emitters are not ported")
             kind, params = ts.next()[1], ts.params()
             if kind != "area":
                 raise NotImplementedError(
@@ -307,20 +328,12 @@ class PbrtParser:
         elif name == "Shape":
             kind, params = ts.next()[1], ts.params()
             if self.current_object is None:
-                self._make_shape(kind, params)
-            elif kind != "trianglemesh":
-                raise NotImplementedError(
-                    f'shape "{kind}" inside ObjectBegin is not ported: only '
-                    "triangle meshes instance (quadric folding is not "
-                    "ported)")
-            elif self.area_light is not None:
-                raise NotImplementedError(
-                    "instanced area emitters are not ported")
+                self._make_shape(kind, params, self.ctm, self._gs())
             else:
                 self.objects[self.current_object].append(
-                    (params, self.ctm.copy(),
-                     [self.material, self.material_id],
-                     self.reverse_orientation))
+                    (kind, params, self.ctm.copy(),
+                     ([self.material, self.material_id], self.area_light,
+                      self.reverse_orientation)))
         elif name == "ObjectBegin":
             self.current_object = ts.next()[1]
             self.objects[self.current_object] = []
@@ -395,30 +408,76 @@ class PbrtParser:
             return self.builder.add_material(kind, [], bump=bump)
         raise NotImplementedError(f'material "{kind}" is not ported')
 
-    def _material_id(self) -> int:
-        if self.material_id is None:
-            self.material_id = self._make_material(self.material)
-        return self.material_id
+    def _gs(self):
+        """The current graphics state as a shape is made with it: (None
+        for the current material, area light params or None, reverse
+        orientation). An object records [material, material id] in the
+        first place instead."""
+        return (None, self.area_light, self.reverse_orientation)
+
+    def _gs_material(self, mat) -> int:
+        """The material id of a recorded [material, id] pair, or of the
+        current state for None, made at the first shape that needs it."""
+        if mat is None:
+            if self.material_id is None:
+                self.material_id = self._make_material(self.material)
+            return self.material_id
+        if mat[1] is None:
+            mat[1] = self._make_material(mat[0])
+        return mat[1]
 
     def _instance(self, name: str):
-        """ObjectInstance: each recorded mesh of the object becomes one
-        shared prototype (made at its first instance, with the material
-        state recorded beside it) and an instance under the current CTM."""
-        for i, (params, sctm, mat, ro) in enumerate(
+        """ObjectInstance (tpuprt/scene/parser.py:378-437): a mesh-kind
+        shape without an area light, or with one under a similarity
+        transform, becomes a shared prototype (made at its first instance,
+        with the material state recorded beside it) and an instance under
+        the current CTM; every other shape, quadrics and emitters under a
+        non-similarity transform included, is made anew under ctm @ its
+        own transform, as tpuprt folds and duplicates them."""
+        for i, (kind, params, sctm, gs) in enumerate(
                 self.objects.get(name, [])):
+            mat, al, ro = gs
+            emissive_ok = al is not None and kind in MESH_KINDS and \
+                is_similarity(self.ctm[:3, :3])
+            if kind not in MESH_KINDS or not (al is None or emissive_ok):
+                self._make_shape(kind, params, self.ctm @ sctm, gs)
+                continue
             pid = self._proto_cache.get((name, i))
             if pid is None:
-                if mat[1] is None:
-                    mat[1] = self._make_material(mat[0])
-                uv = params.find_floats("uv")
-                if uv is None:
-                    uv = params.find_floats("st")
+                mid = self._gs_material(mat)
+                P, idx, N, uv = _mesh_arrays(kind, params)
                 pid = self.builder.add_prototype(
-                    params.find_ints("indices"), params.find_floats("P"),
-                    N=params.find_floats("N"), uv=uv, material=mat[1],
-                    reverse_orientation=ro, o2w=sctm)
+                    idx, P, N=N, uv=uv, material=mid,
+                    reverse_orientation=ro, o2w=sctm,
+                    area_light_L=(al.find_spectrum("L", (1.0,) * 3)
+                                  if al is not None else None),
+                    area_nsamples=(int(al.find_one("nsamples", 1))
+                                   if al is not None else 1))
                 self._proto_cache[(name, i)] = pid
             self.builder.add_instance(pid, self.ctm)
+
+    def _make_volume(self, kind: str, params: ParamSet):
+        """Volume (tpuprt/scene/parser.py:765-789): a region under the
+        current transform."""
+        if kind not in ("homogeneous", "exponential", "volumegrid"):
+            raise NotImplementedError(f'volume "{kind}" is not ported')
+        common = dict(
+            v2w=self.ctm, p0=params.find_point("p0", (0, 0, 0)),
+            p1=params.find_point("p1", (1, 1, 1)),
+            sigma_a=params.find_spectrum("sigma_a", (1.0,) * 3),
+            sigma_s=params.find_spectrum("sigma_s", (1.0,) * 3),
+            le=params.find_spectrum("Le", (0.0,) * 3),
+            g=params.find_one("g", 0.0))
+        if kind == "exponential":
+            common.update(a=params.find_one("a", 1.0),
+                          b=params.find_one("b", 1.0),
+                          updir=params.find_point("updir", (0, 1, 0)))
+        elif kind == "volumegrid":
+            common.update(density=params.find_floats("density"),
+                          density_shape=(params.find_one("nx", 1),
+                                         params.find_one("ny", 1),
+                                         params.find_one("nz", 1)))
+        self.builder.add_volume(kind, **common)
 
     def _make_texture(self, tex_class, tex_type, params) -> int:
         """Texture (tpuprt/scene/parser.py:526-619)."""
@@ -579,63 +638,59 @@ class PbrtParser:
             u = np.array([0, v[2] * inv, -v[1] * inv])
         return v, u, np.cross(v, u)
 
-    def _make_shape(self, kind: str, params: ParamSet):
-        """Shape (tpuprt/scene/parser.py:696-758): the material is made
-        first, then the shape, then its area light."""
+    def _make_shape(self, kind: str, params: ParamSet, ctm, gs):
+        """Shape (tpuprt/scene/parser.py:696-763) under `ctm` with the
+        graphics state `gs` (_gs): the material is made first, then the
+        shape (a tessellated one as a triangle mesh), then its area
+        light."""
         b = self.builder
-        if kind not in ("trianglemesh", "sphere", "cylinder", "disk", "cone",
-                        "paraboloid", "hyperboloid"):
+        if kind not in MESH_KINDS + ("sphere", "cylinder", "disk", "cone",
+                                     "paraboloid", "hyperboloid"):
             raise NotImplementedError(f'shape "{kind}" is not ported')
-        if self.area_light is not None and kind not in (
-                "sphere", "cylinder", "disk", "trianglemesh"):
+        mat_ref, al, ro = gs
+        if al is not None and kind not in MESH_KINDS + (
+                "sphere", "cylinder", "disk"):
             raise NotImplementedError(
                 f'area lights on shape "{kind}" are not ported (spheres, '
                 "disks, cylinders and triangle meshes)")
-        mat = self._material_id()
-        ro = self.reverse_orientation
+        mat = self._gs_material(mat_ref)
         one = params.find_one
-        if kind == "trianglemesh":
-            uv = params.find_floats("uv")
-            if uv is None:
-                uv = params.find_floats("st")
-            mid = b.add_trianglemesh(
-                self.ctm, params.find_ints("indices"),
-                params.find_floats("P"), params.find_floats("N"), uv,
-                params.find_floats("S"), mat, reverse_orientation=ro)
-            if self.area_light is not None:
-                b.add_area_light_mesh(
-                    mid, self.area_light.find_spectrum("L", (1.0,) * 3),
-                    self.area_light.find_one("nsamples", 1))
+        if kind in MESH_KINDS:
+            P, idx, N, uv = _mesh_arrays(kind, params)
+            S = params.find_floats("S") if kind == "trianglemesh" else None
+            mid = b.add_trianglemesh(ctm, idx, P, N, uv, S, mat,
+                                     reverse_orientation=ro)
+            if al is not None:
+                b.add_area_light_mesh(mid, al.find_spectrum("L", (1.0,) * 3),
+                                      al.find_one("nsamples", 1))
             return
         if kind == "sphere":
             r = one("radius", 1.0)
-            qid = b.add_sphere(self.ctm, r, one("zmin", -r), one("zmax", r),
+            qid = b.add_sphere(ctm, r, one("zmin", -r), one("zmax", r),
                                one("phimax", 360.0), mat, -1, ro)
         elif kind == "cylinder":
-            qid = b.add_cylinder(self.ctm, one("radius", 1.0),
-                                 one("zmin", -1.0), one("zmax", 1.0),
-                                 one("phimax", 360.0), mat, -1, ro)
+            qid = b.add_cylinder(ctm, one("radius", 1.0), one("zmin", -1.0),
+                                 one("zmax", 1.0), one("phimax", 360.0), mat,
+                                 -1, ro)
         elif kind == "disk":
-            qid = b.add_disk(self.ctm, one("height", 0.0), one("radius", 1.0),
+            qid = b.add_disk(ctm, one("height", 0.0), one("radius", 1.0),
                              one("innerradius", 0.0), one("phimax", 360.0),
                              mat, -1, ro)
         elif kind == "cone":
-            qid = b.add_cone(self.ctm, one("radius", 1.0), one("height", 1.0),
+            qid = b.add_cone(ctm, one("radius", 1.0), one("height", 1.0),
                              one("phimax", 360.0), mat, -1, ro)
         elif kind == "paraboloid":
             r = one("radius", 1.0)
-            qid = b.add_paraboloid(self.ctm, r, one("zmin", 0.0),
+            qid = b.add_paraboloid(ctm, r, one("zmin", 0.0),
                                    one("zmax", 1.0), one("phimax", 360.0),
                                    mat, -1, ro)
         else:
-            qid = b.add_hyperboloid(self.ctm,
-                                    params.find_point("p1", (0, 0, 0)),
+            qid = b.add_hyperboloid(ctm, params.find_point("p1", (0, 0, 0)),
                                     params.find_point("p2", (1, 1, 1)),
                                     one("phimax", 360.0), mat, -1, ro)
-        if self.area_light is not None:
-            b.add_area_light_sphere(
-                qid, self.area_light.find_spectrum("L", (1.0,) * 3),
-                self.area_light.find_one("nsamples", 1))
+        if al is not None:
+            b.add_area_light_sphere(qid, al.find_spectrum("L", (1.0,) * 3),
+                                    al.find_one("nsamples", 1))
 
     def finish(self):
         """MakeScene (api.cpp:484-529): camera + scene + options."""
@@ -747,11 +802,25 @@ class PbrtParser:
             filter_xwidth=self.filter_params.find_one("xwidth", fw[0]),
             filter_ywidth=self.filter_params.find_one("ywidth", fw[1]),
             integrator=self.integrator_name,
+            volume_integrator=("single" if self.volume_integrator_name ==
+                               "single" else "emission"),
             max_depth=self.integrator_params.find_one("maxdepth", 5),
             filename=fp.find_one("filename", "pbrt.exr"), crop=crop,
             writefrequency=fp.find_one("writefrequency", -1),
             photon=photon, igi=igi_p, irrad=irrad)
         return self.builder.build(), opts
+
+
+def _mesh_arrays(kind: str, params: ParamSet):
+    """(P, indices, N, uv) of a mesh-kind shape: a trianglemesh's own ("uv"
+    or else "st"), or the tessellation of the others."""
+    if kind != "trianglemesh":
+        return tessellate(kind, params)
+    uv = params.find_floats("uv")
+    if uv is None:
+        uv = params.find_floats("st")
+    return (params.find_floats("P"), params.find_ints("indices"),
+            params.find_floats("N"), uv)
 
 
 def load_scene(path: str):
