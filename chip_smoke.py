@@ -225,7 +225,11 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    largest any-hit call (the single-scattering march's shadow rays); each
    at the size of its reference (scenes/config4_fog.exr,
    bench3_smoke.exr: tpuprt's, tools/volume_refs.py, emission only) within
-   VOL_REF_REL, VOL_REF_MEAN. bench6/fog (bench6 in a thin homogeneous
+   VOL_REF_REL, VOL_REF_MEAN; single_box (single_text: a small scene of
+   its own under Accelerator "none", VolumeIntegrator "single") at
+   16x16 x 1 spp through mt_best, within the same limits of
+   scenes/single_box.exr (tpuprt's "single", rendered eagerly).
+   bench6/fog (bench6 in a thin homogeneous
    box: photonmap over volumes takes the chunked driver): load -> maps ->
    render, first and warm, finite, peak memory, mt_best's launches.
 37. render -- the rest of instancing (instancing_phases): rocks/loop, the
@@ -235,6 +239,17 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    instanced quad lamps (lamps_text, every 8th mirrored), directlighting
    "one", beside the same lamps inline (LAMP_DIFF, LAMP_MAX), the
    instanced walk bit-equal on every k-th ray of its largest call.
+38. operability -- config4_big written as pbrt-v1 users split a scene
+   (split_scene_files: SearchPath, Include nested and relative,
+   CoordinateSystem/CoordSysTransform, Identity, a MakeNamedMaterial
+   line and an unused parameter) rendered by ``python -m tpuprt_torch``'s
+   main() in this process: bvh_tiles launched, the EXR inside phase 4's
+   band of bench4.exr and equal to the library path's render up to the
+   splat's order, two warnings, the samples taken in its stats table;
+   then once more as ``python3 -m tpuprt_torch`` in a child process (no
+   JAX on the machine); walls beside phase 4's. Then the imaging
+   pipeline (maxwhite, gamma 2.2, bloom 0.2) on that image on the card
+   and on the CPU, their largest difference.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -442,8 +457,9 @@ SHARD_TOL = 1e-5          # sharded against single-device results
 # The references are emission-only ("emission"): a jit of tpuprt's
 # single-scattering render_chunk did not finish on the CPU (config4_big's
 # failed after a 5.5-minute compile, bench3's ran past 18 minutes), so
-# "single" is held by the pool against the scan here and per lane on the
-# CPU (tests/test_torch_volumes_single.py).
+# "single" is held by the pool against the scan here, per lane on the
+# CPU (tests/test_torch_volumes_single.py), and on a small scene of its
+# own against tpuprt's eager render (SINGLE_EXR).
 FOG_EXR = os.path.join(ROOT, "scenes", "config4_fog.exr")
 SMOKE_EXR = os.path.join(ROOT, "scenes", "bench3_smoke.exr")
 VOL_REF_REL, VOL_REF_MEAN = 1e-3, 1e-3
@@ -456,6 +472,13 @@ LAMP_DIFF, LAMP_MAX = 0.03, 0.01
 # rocks/loop against its inline tessellation, per pixel: the same samples,
 # summed into a pixel in the order of the card's atomic adds.
 LOOP_REL = 1e-5
+# "single" scattering held to tpuprt's image of a scene of its own
+# (single_text; tools/volume_refs.py, rendered eagerly on the CPU).
+SINGLE_EXR = os.path.join(ROOT, "scenes", "single_box.exr")
+SINGLE_RES, SINGLE_SEED = 16, 7
+# Phase 38: the imaging pipeline on the card against the CPU, on the 0-255
+# scale (the convolutions sum in other orders on the two devices).
+TONEMAP_TOL = 1e-2
 
 
 def write_lit_maps(d, small=1):
@@ -688,6 +711,57 @@ def smoke_text(text, res=None, spp=None, integrator="single"):
         '  "color Le" [0.03 0.02 0.01] "float g" [0.2]\n'
         '  "point p0" [-0.95 -1 -0.95] "point p1" [0.95 0.6 0.95]\n') + \
         text[cut:]
+
+
+def single_text(res=SINGLE_RES, spp=1):
+    """A small scene of its own for "single" scattering against tpuprt's
+    image (scenes/single_box.exr, tools/volume_refs.py): a floor, a back
+    wall and a box, 14 triangles under Accelerator "none", a homogeneous
+    region over them and a 4^3 volumegrid of seeded density inside it, lit
+    by a point light and a downward disk area light, directlighting with
+    VolumeIntegrator "single", at res x res x spp."""
+    import numpy as np
+    P = [-1.5, 0, -1.5, 1.5, 0, -1.5, 1.5, 0, 1.5, -1.5, 0, 1.5,
+         -1.5, 0, 1.5, 1.5, 0, 1.5, 1.5, 2.5, 1.5, -1.5, 2.5, 1.5]
+    idx = [0, 1, 2, 0, 2, 3, 4, 5, 6, 4, 6, 7]
+    box = [(x, y, z) for y in (0.0, 0.7) for z in (-0.6, 0.0)
+           for x in (-0.2, 0.4)]
+    base = len(P) // 3
+    P += [c for v in box for c in v]
+    # The box's top and its four sides (the floor hides its bottom).
+    for a, b, c, d in ((4, 5, 7, 6), (0, 1, 5, 4), (2, 3, 7, 6),
+                       (0, 2, 6, 4), (1, 3, 7, 5)):
+        idx += [base + a, base + b, base + c, base + a, base + c, base + d]
+    dens = np.random.default_rng(SINGLE_SEED).uniform(0, 3, 64)
+    return f'''Film "image" "integer xresolution" [{res}]
+  "integer yresolution" [{res}] "string filename" ["single_box.exr"]
+Sampler "lowdiscrepancy" "integer pixelsamples" [{spp}]
+PixelFilter "box"
+LookAt 0 1.1 -3.6  0 0.7 0  0 1 0
+Camera "perspective" "float fov" [50]
+SurfaceIntegrator "directlighting"
+VolumeIntegrator "single"
+Accelerator "none"
+WorldBegin
+LightSource "point" "point from" [0.9 2.1 -0.8] "color I" [5 5 5]
+AttributeBegin
+  Translate -0.5 2.2 0.3
+  Rotate 90 1 0 0
+  AreaLightSource "area" "color L" [5 4.5 4]
+  Shape "disk" "float radius" [0.35]
+AttributeEnd
+Material "matte" "color Kd" [0.6 0.55 0.5]
+Shape "trianglemesh" "integer indices" [{_fmt(idx)}] "point P" [{_fmt(P)}]
+Volume "homogeneous" "color sigma_a" [0.04 0.04 0.04]
+  "color sigma_s" [0.2 0.2 0.2] "float g" [0.3]
+  "point p0" [-1.4 0.01 -1.4] "point p1" [1.4 2.3 1.4]
+Volume "volumegrid" "integer nx" [4] "integer ny" [4] "integer nz" [4]
+  "float density" [{_fmt(dens)}]
+  "color sigma_a" [0.1 0.1 0.1] "color sigma_s" [0.8 0.8 0.8]
+  "color Le" [0.02 0.015 0.01] "float g" [-0.2]
+  "point p0" [-1.1 0.05 -0.5] "point p1" [-0.3 1.0 0.5]
+WorldEnd
+'''
 
 
 def materials_text(text, res=None, spp=None):
@@ -1792,6 +1866,7 @@ def gi_render(label, text, device, reps, golden=None, limits=None):
     from tpuprt_torch.io.exr import read_exr, write_exr
     from tpuprt_torch.ops import bvh_cuda, mt_cuda
     from tpuprt_torch.scene.parser import load_scene_string
+    from tpuprt_torch.utils.stats import StatsRegistry
 
     def run(stats=None):
         torch.cuda.synchronize()
@@ -1806,7 +1881,7 @@ def gi_render(label, text, device, reps, golden=None, limits=None):
             c[k] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stats = {}
+    stats = StatsRegistry()
     rgb, alpha, opts, first_s = run(stats)
     peak = torch.cuda.max_memory_allocated()
     launches = {k: v for c in counters for k, v in c.items()}
@@ -1829,9 +1904,9 @@ def gi_render(label, text, device, reps, golden=None, limits=None):
              mt_best_any=launches["mt_best_any"], finite=True,
              first_wall_s=first_s, wall_s=wall, walls_timed=reps,
              samples_per_s=opts.xres * opts.yres * spp / wall,
-             preprocess_s=stats.pop("preprocess_s"),
-             preprocess={k: v for k, v in stats.items()
-                         if not isinstance(v, (list, dict))},
+             preprocess_s=stats.get("Performance", "Preprocess seconds"),
+             preprocess={name: v for (cat, name), v in stats.items()
+                         if cat == "Preprocess"},
              peak_device_bytes=peak)
     if golden:
         rel, mean = band(rgb, read_exr(golden)[0])
@@ -2333,7 +2408,8 @@ def scan_render(label, scene, opts, device, need, **kw):
     failing unless every kernel in `need` launched."""
     import numpy as np
     from tpuprt_torch import render as R
-    stats = {}
+    from tpuprt_torch.utils.stats import StatsRegistry
+    stats = StatsRegistry()
     (rgb, alpha), counts, wall, peak = counted(device, lambda: R.render(
         scene, opts, device=device, stats=stats, **kw))
     missing = unlaunched(device, counts, need)
@@ -2341,8 +2417,8 @@ def scan_render(label, scene, opts, device, need, **kw):
         raise AssertionError(f"{label}: launched no {missing} or not "
                              "finite")
     return rgb, alpha, dict(scene=label, driver=opts.driver, wall_s=wall,
-                            chunks=stats.get("chunks"),
-                            chunk_lanes=stats.get("chunk_lanes"),
+                            chunks=stats.get("Film", "Wavefront chunks"),
+                            chunk_lanes=stats.get("Film", "Chunk lanes"),
                             launches=counts, peak_device_bytes=peak)
 
 
@@ -3066,6 +3142,162 @@ def shading_phases(device, launches, res):
                THINLENS_EXR, device, ["bvh_tiles"], (BAND_REL, BAND_MEAN))
 
 
+def split_scene_files(d, text):
+    """config4_big's text written into directory d as pbrt-v1 users split
+    a scene: top.pbrt (the film, sampler and integrator, a SearchPath,
+    Include "view/camera.pbrt" with the LookAt, a CoordinateSystem "eye"
+    and the Camera, then WorldBegin, Identity and Include
+    "world/world.pbrt"); world/world.pbrt includes "lights.pbrt" beside
+    itself, takes a CoordinateSystem "w0" / Translate / CoordSysTransform
+    "w0" whose net transform is the identity, one MakeNamedMaterial
+    line (an unknown statement) and one parameter nothing reads on the
+    terrain's Shape: two warnings. Returns top.pbrt's path."""
+    head, world = text.split("WorldBegin\n", 1)
+    lines = head.splitlines()
+    look = next(ln for ln in lines if ln.startswith("LookAt"))
+    cam = next(ln for ln in lines if ln.startswith("Camera"))
+    lights, body = world.split("Texture", 1)
+    body = "Texture" + body[:body.rindex("WorldEnd")]
+    assert lights.startswith("LightSource") and \
+        body.count('Shape "trianglemesh"') == 1
+    files = {
+        "top.pbrt": "\n".join(ln for ln in lines if ln not in (look, cam)) +
+        '\nSearchPath "shaders:plugins"\nInclude "view/camera.pbrt"\n'
+        'WorldBegin\nIdentity\nInclude "world/world.pbrt"\nWorldEnd\n',
+        "view/camera.pbrt": f'{look}\nCoordinateSystem "eye"\n{cam}\n',
+        "world/lights.pbrt": lights,
+        "world/world.pbrt": 'Include "lights.pbrt"\n'
+        'CoordinateSystem "w0"\nTranslate 0.25 -0.5 1\n'
+        'CoordSysTransform "w0"\n'
+        'MakeNamedMaterial "terrain" "string type" ["matte"]\n' +
+        body.replace('Shape "trianglemesh"',
+                     'Shape "trianglemesh" "float alpha" [1]'),
+    }
+    for name, content in files.items():
+        os.makedirs(os.path.dirname(os.path.join(d, name)), exist_ok=True)
+        with open(os.path.join(d, name), "w") as f:
+            f.write(content)
+    return os.path.join(d, "top.pbrt")
+
+
+def operability_phase(device, launches, c4_walls, res=None):
+    """Phase 38: the CLI on the card. config4_big split into files
+    (split_scene_files) rendered by tpuprt_torch.cli.main([top, -o, out])
+    in this process under counted(): rc 0, bvh_tiles launched, the EXR
+    inside phase 4's band of bench4.exr and, against the library path's
+    render of scenes/config4_big.pbrt with the same options (f16
+    readback), each value within LOOP_REL or one f16 step (2^-10
+    relative: two f32 sums that the splat's atomic adds order differently
+    may round to neighbouring halves), exactly two warnings more, and
+    "Samples taken" 512 x 512 x 4 in its stats table; a warm second run;
+    then ``python3 -m tpuprt_torch top -o out2 --quiet`` once in a child
+    process (the entry point without JAX), its EXR as the first. The
+    walls beside phase 4's (c4_walls: first, warm). Then
+    apply_imaging_pipeline ("maxwhite", gamma 2.2, bloom 0.2) on the image
+    on the card and on the CPU, their largest difference on the 0-255
+    scale (at most TONEMAP_TOL), each one's wall. res shrinks the film
+    for a rehearsal on the CPU (no band there, and the CPU stands in for
+    the card)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from tpuprt_torch import cli
+    from tpuprt_torch import render as R
+    from tpuprt_torch.io.exr import read_exr
+    from tpuprt_torch.scene.parser import load_scene, load_scene_string
+    from tpuprt_torch.tonemaps.tonemaps import apply_imaging_pipeline
+    from tpuprt_torch.utils import errors
+    from tpuprt_torch.utils.stats import _suffixed
+
+    def close(a, b):
+        """Per value: |a - b| within LOOP_REL or one f16 step of b."""
+        tol = np.maximum(LOOP_REL * np.abs(b), np.abs(b) * 2.0 ** -10)
+        err = np.abs(a - b)
+        return bool((err <= tol).all()), int((a != b).sum()), float(
+            (err / np.maximum(np.abs(b), 1e-30)).max())
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    with open(SCENE) as f:
+        text = film_text(f.read(), res)
+    dev = [] if cuda else ["--device", "cpu"]
+    with tempfile.TemporaryDirectory() as d:
+        top = split_scene_files(d, text)
+        out, out2 = os.path.join(d, "cli.exr"), os.path.join(d, "cli2.exr")
+        warned = errors.counts["warning"]
+        stdout, stderr = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            rc, counts, first_s, peak = counted(
+                device, lambda: cli.main([top, "-o", out] + dev))
+        warnings = errors.counts["warning"] - warned
+        launches["config4_big/cli"] = counts
+        rgb, alpha = read_exr(out)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main([top, "-o", out, "--quiet"] + dev)
+        sync()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "tpuprt_torch", top, "-o", out2,
+             "--quiet"] + dev, cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"python -m tpuprt_torch failed: "
+                                 f"{child.stderr[-2000:]}")
+        rgb2, _ = read_exr(out2)
+    table = stdout.getvalue()
+    taken = next((ln.split()[-1] for ln in table.splitlines()
+                  if "Samples taken" in ln), None)
+    scene, opts = load_scene(SCENE) if res is None else \
+        load_scene_string(text)
+    lib, lib_alpha = R.render(scene, opts._replace(half_readback=True),
+                              device=device)
+    rel, mean = band(rgb, read_exr(GOLDEN)[0]) if res is None else (0, 0)
+    same, n_diff, max_rel = close(rgb, lib)
+    same2, n_diff2, max_rel2 = close(rgb2, rgb)
+    emit(phase="operability", scene="config4_big/cli", rc=rc,
+         shape=list(rgb.shape), launches=counts,
+         bvh_tiles_any=counts["bvh_tiles_any"], first_wall_s=first_s,
+         warm_wall_s=warm_s, child_process_wall_s=child_s,
+         library_first_wall_s=c4_walls[0], library_wall_s=c4_walls[1],
+         peak_device_bytes=peak, band_rel=rel, band_rel_limit=BAND_REL,
+         band_mean=mean, band_mean_limit=BAND_MEAN,
+         vs_library=dict(values_differ=n_diff, max_rel_diff=max_rel,
+                         within=same),
+         child_vs_first=dict(values_differ=n_diff2, max_rel_diff=max_rel2,
+                             within=same2),
+         warnings=warnings, samples_taken=taken,
+         progress_drawn="Rendering: [" in stderr.getvalue())
+    assert rc == 0 and not unlaunched(device, counts, ["bvh_tiles"]), \
+        (rc, counts)
+    assert np.isfinite(rgb).all() and np.array_equal(alpha, lib_alpha)
+    assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
+    assert same and same2, (max_rel, max_rel2)
+    assert warnings == 2 and taken == _suffixed(
+        opts.xres * opts.yres * opts.sampler.pixelsamples), (warnings, taken)
+
+    # The tone map on the card and on the CPU.
+    kw = dict(tonemap="maxwhite", gamma=2.2, bloom_radius=0.2)
+    img = torch.from_numpy(rgb)
+    apply_imaging_pipeline(img.to(device), **kw)      # warm the card
+    sync()
+    t0 = time.perf_counter()
+    on_card = apply_imaging_pipeline(img.to(device), **kw).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = apply_imaging_pipeline(img, **kw)
+    cpu_s = time.perf_counter() - t0
+    diff = float((on_card - on_cpu).abs().max())
+    emit(phase="operability", check="tonemap", args=kw, shape=list(
+         on_card.shape), max_abs_diff_0_255=diff, limit=TONEMAP_TOL,
+         card_s=card_s, cpu_s=cpu_s)
+    assert diff <= TONEMAP_TOL and bool(torch.isfinite(on_card).all()), diff
+
+
 def bench6_fog_text(text):
     """bench6's text with a thin homogeneous Volume filling the box."""
     cut = text.rindex("WorldEnd")
@@ -3087,7 +3319,9 @@ def volume_phases(device, launches, res, res4=None, res3=None, spp3=None):
     every k-th ray of the scan's largest any-hit call (a chunk's
     single-scattering shadow rays), and at its reference's film, emission
     only (VOL_REF_INTEGRATOR), within VOL_REF_REL, VOL_REF_MEAN of
-    tpuprt's image. bench6/fog (bench6_fog_text: photonmap, which leaves
+    tpuprt's image. single_box (single_text: "single" under Accelerator
+    "none", mt_best in both modes) within the same limits of tpuprt's
+    "single" image (scenes/single_box.exr). bench6/fog (bench6_fog_text: photonmap, which leaves
     the pool for the chunked driver over volumes): load -> maps -> render
     timed, finite, peak memory, mt_best's launches. res4, res3, spp3
     shrink the films for a rehearsal on the CPU (bench6/fog at res3)."""
@@ -3096,6 +3330,7 @@ def volume_phases(device, launches, res, res4=None, res3=None, spp3=None):
     from tpuprt_torch.ops import bvh_cuda, mt_cuda
     from tpuprt_torch.scene.data import to_device
     from tpuprt_torch.scene.parser import load_scene_string
+    from tpuprt_torch.utils.stats import StatsRegistry
     with open(SCENE) as f:
         c4 = f.read()
     with open(BENCH3) as f:
@@ -3152,6 +3387,11 @@ def volume_phases(device, launches, res, res4=None, res3=None, spp3=None):
         del rays, scene
         ref_render(f"{label}/ref", ref_text, ref, device, need,
                    (VOL_REF_REL, VOL_REF_MEAN))
+    # "single" itself held to tpuprt's image: single_text's small scene
+    # (scenes/single_box.exr, tpuprt's eager render on the CPU).
+    ref_render("single_box/ref", lambda r: single_text(res=r), SINGLE_EXR,
+               device, ["mt_best", "mt_best_any"],
+               (VOL_REF_REL, VOL_REF_MEAN))
 
     with open(BENCH6) as f:
         b6 = film_text(bench6_fog_text(f.read()), res3)
@@ -3162,7 +3402,7 @@ def volume_phases(device, launches, res, res4=None, res3=None, spp3=None):
         out = R.render(scene, opts._replace(half_readback=True),
                        device=device, stats=stats)
         return out, opts, time.perf_counter() - t0
-    stats = {}
+    stats = StatsRegistry()
     ((rgb, _), opts, _), launches["bench6/fog"], first_s, peak = counted(
         device, load_render)
     wall = load_render()[2]
@@ -3170,7 +3410,8 @@ def volume_phases(device, launches, res, res4=None, res3=None, spp3=None):
     missing = unlaunched(device, counts, ["mt_best", "mt_best_any"])
     emit(phase="render", scene="bench6/fog", shape=list(rgb.shape),
          spp=opts.sampler.pixelsamples, driver="chunked",
-         preprocess_s=stats.get("preprocess_s"), launches=counts,
+         preprocess_s=stats.get("Performance", "Preprocess seconds"),
+         launches=counts,
          mt_best_nearest=counts["mt_best"] - counts["mt_best_any"],
          mt_best_any=counts["mt_best_any"], finite=bool(
              np.isfinite(rgb).all()), first_wall_s=first_s, wall_s=wall,
@@ -3380,6 +3621,7 @@ def main(argv=None):
          band_mean_limit=BAND_MEAN, first_render_s=first_s, wall_s=wall,
          rays_per_s=CONFIG4_REF_RAYS / wall)
     assert rel <= BAND_REL and mean <= BAND_MEAN, (rel, mean)
+    c4_walls = (first_s, wall)
     if args.profile:
         profile_render("config4_big", scene, opts, device)
 
@@ -3755,6 +3997,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     instancing_phases(device, launches, res)
     emit(phase="instancing", seconds=time.perf_counter() - t0)
+    # 38. The CLI.
+    t0 = time.perf_counter()
+    operability_phase(device, launches, c4_walls)
+    emit(phase="operability", seconds=time.perf_counter() - t0)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",
@@ -3825,6 +4071,11 @@ def main(argv=None):
                 entry[f"{key}_launches_any_hit"] = \
                     launches[p]["bvh_tiles_any"]
             entry["volume_sets"] = light_sets(rs, "config4_big/fog/")
+            # The CLI's render of the split config4_big (phase 38).
+            entry["config4_big_cli_launches"] = \
+                launches["config4_big/cli"]["bvh_tiles"]
+            entry["config4_big_cli_launches_any_hit"] = \
+                launches["config4_big/cli"]["bvh_tiles_any"]
         if name == "bvh_instanced":
             # The Loop-subdivided rocks and the instanced lamps (phase
             # 37), the lamps' set.

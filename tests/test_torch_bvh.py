@@ -222,7 +222,8 @@ def test_render_copies_only_the_walked_format(scenes, monkeypatch):
     _, tscene = scenes
     seen = []
     monkeypatch.setattr(R.path_wavefront, "render",
-                        lambda scene, opts, device: seen.append(scene.accel))
+                        lambda scene, opts, device, **kw:
+                        seen.append(scene.accel))
     rows_only = dataclasses.replace(tscene, accel=dataclasses.replace(
         tscene.accel, nodesT=None, nodeskip=None, nodemeta=None))
     for scene in (tscene, rows_only):

@@ -31,6 +31,7 @@ from tpuprt_torch.integrators import irradiancecache as tic
 from tpuprt_torch.scene.bridge import (from_numpy_tables,
                                        virtual_lights_from_numpy)
 from tpuprt_torch.scene.parser import load_scene_string
+from tpuprt_torch.utils.stats import StatsRegistry
 
 torch.set_num_threads(1)
 _SCENES = os.path.join(os.path.dirname(os.path.dirname(
@@ -248,10 +249,10 @@ def test_driver_image_matches_tpuprt(name, request):
         request.getfixturevalue(name)
     aux = None if jaux is None else \
         virtual_lights_from_numpy(numpy_tables(jaux), "cpu")
-    stats = {}
+    stats = StatsRegistry()
     trgb, talpha = torch_render.render(tscene, topts, device="cpu", aux=aux,
                                        stats=stats)
-    assert stats["chunks"] == 1
+    assert stats.get("Film", "Wavefront chunks") == 1
     image_close(jrgb, jalpha, trgb, talpha)
     real = torch_render.chunk_lanes
     torch_render.chunk_lanes = lambda device, total: 100

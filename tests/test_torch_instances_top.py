@@ -1,6 +1,6 @@
-"""ObjectInstance's routes and the instance table's top-level BVH: what an
-object holds that the port does not render raises, an emitter and a
-quadric in an object load as tpuprt's tables; the top-level BVH holds every
+"""ObjectInstance's routes and the instance table's top-level BVH: an
+emitter, a quadric and an area light on a cone in an object load as
+tpuprt's tables; the top-level BVH holds every
 entry once, and a walk in another order keeps the earliest entry; split
 from test_torch_instances.py so no file holds more than ten cases.
 """
@@ -19,18 +19,23 @@ from tpuprt_torch.scene.bridge import from_numpy_tables
 from tpuprt_torch.scene.parser import load_scene_string
 
 
-# An emitter and a quadric inside an object were refused before the port
-# covered them; the cases keep their ids and now check the loaded tables.
+# An emitter, a quadric and an area light on a cone inside an object were
+# refused before the port covered them; the cases keep their ids and now
+# check the loaded tables.
 @pytest.mark.parametrize("body, message", [
     pytest.param(_EMITTER, None, id=_EMITTER +
                  "-instanced area emitters are not ported"),
     pytest.param(_SPHERE, None, id=_SPHERE + "-quadric"),
-    ('AreaLightSource "area"\nShape "cone"\n', "area lights on shape"),
+    pytest.param('AreaLightSource "area"\nShape "cone"\n', None,
+                 id='AreaLightSource "area"\nShape "cone"\n'
+                 '-area lights on shape'),
 ])
 def test_uncovered_objects_raise(body, message):
     """What an object may hold that the port does not render raises at
-    its ObjectInstance; an emissive mesh (instanced, its own light) and a
-    quadric (folded into the quadric table) load into tpuprt's tables."""
+    its ObjectInstance; an emissive mesh (instanced, its own light), a
+    quadric (folded into the quadric table) and an area light on a cone
+    (a cone that emits nothing, as tpuprt's) load into tpuprt's
+    tables."""
     text = rocks_text().replace("WorldEnd", _OBJECT.format(body=body))
     if message is not None:
         with pytest.raises(NotImplementedError, match=message):

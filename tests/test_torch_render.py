@@ -101,26 +101,20 @@ def test_exr_matches_tpuprt(tmp_path):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, tpuprt_torch, tpuprt_torch.render, "
-            "tpuprt_torch.scene.parser, tpuprt_torch.scene.bridge, "
-            "tpuprt_torch.io.exr, tpuprt_torch.accel.instances, "
-            "tpuprt_torch.accel.intersect, tpuprt_torch.ops.bvh_cuda, "
-            "tpuprt_torch.ops.mt_cuda, tpuprt_torch.shapes.quadrics, "
-            "tpuprt_torch.bsdf.bsdf, tpuprt_torch.materials.factory, "
-            "tpuprt_torch.integrators.common, "
-            "tpuprt_torch.integrators.path_wavefront, "
-            "tpuprt_torch.accel.grid, tpuprt_torch.accel.grid_build, "
-            "tpuprt_torch.accel.kdtree, tpuprt_torch.accel.kdtree_build, "
-            "tpuprt_torch.samplers.samplers, tpuprt_torch.lights.lights, "
-            "tpuprt_torch.lights.emission, tpuprt_torch.accel.photon_grid, "
-            "tpuprt_torch.integrators.photonmap, tpuprt_torch.accel.bvh, "
-            "tpuprt_torch.integrators.igi, "
-            "tpuprt_torch.integrators.irradiancecache, "
-            "tpuprt_torch.integrators.exphotonmap, "
-            "tpuprt_torch.integrators.bidirectional, "
-            "tpuprt_torch.core.spectrum, tpuprt_torch.core.jrandom, "
-            "tpuprt_torch.diff.silhouette, tpuprt_torch.parallel.shard, "
-            "tpuprt_torch.parallel.multihost; "
+    """Every module of the package (pkgutil.walk_packages over
+    tpuprt_torch, the CLI's __main__ included) imports without JAX or the
+    JAX package."""
+    code = ("import importlib, pkgutil, sys, tpuprt_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "tpuprt_torch.__path__, 'tpuprt_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "need = {'tpuprt_torch.cli', 'tpuprt_torch.__main__', "
+            "'tpuprt_torch.utils.stats', 'tpuprt_torch.utils.progress', "
+            "'tpuprt_torch.utils.errors', 'tpuprt_torch.tonemaps.tonemaps', "
+            "'tpuprt_torch.samplers.bc_gen', 'tpuprt_torch.volumes.regions', "
+            "'tpuprt_torch.integrators.volume', "
+            "'tpuprt_torch.scene.tessellate'}; "
+            "assert need <= set(mods), need - set(mods); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'tpuprt' or "
             "m.startswith('tpuprt.')]; "

@@ -42,6 +42,7 @@ from tpuprt_torch.integrators import photonmap as tpm
 from tpuprt_torch.scene.bridge import photon_maps_from_numpy
 from tpuprt_torch.scene.data import to_device
 from tpuprt_torch.scene.parser import load_scene_string
+from tpuprt_torch.utils.stats import StatsRegistry
 
 torch.set_num_threads(1)
 RES, SPP = 16, 2
@@ -235,12 +236,13 @@ def test_checkpoint_resume_matches_straight_render(tmp_path):
     scene, opts = load_scene_string(OPERABILITY)
     opts = opts._replace(chunk_size=256,
                          filename=str(tmp_path / "partial.exr"))
-    stats = {}
+    stats = StatsRegistry()
     rgb_ref, alpha_ref = torch_render.render(scene, opts, device="cpu",
                                              stats=stats)
     assert os.path.exists(opts.filename)       # writefrequency's image
     total = 32 * 24
-    assert stats["chunks"] == total // 256 and stats["chunk_lanes"] == 256
+    assert stats.get("Film", "Wavefront chunks") == total // 256 and \
+        stats.get("Film", "Chunk lanes") == 256
     assert rgb_ref.max() > 0.1
 
     # The first half of the chunks by hand, checkpointed, then resumed.
@@ -254,11 +256,11 @@ def test_checkpoint_resume_matches_straight_render(tmp_path):
             sc, opts, film, (lin % 32).to(torch.int32),
             (lin // 32).to(torch.int32), torch.zeros(256, dtype=torch.int32))
     torch_render.save_checkpoint(ckpt, film, half, opts)
-    stats = {}
+    stats = StatsRegistry()
     rgb_res, alpha_res = torch_render.render(
         scene, opts, device="cpu", stats=stats, checkpoint_path=ckpt,
         resume=True)
-    assert stats["chunks"] == total // 256 - half
+    assert stats.get("Film", "Wavefront chunks") == total // 256 - half
     np.testing.assert_allclose(rgb_res, rgb_ref, atol=1e-5)
     np.testing.assert_allclose(alpha_res, alpha_ref, atol=1e-5)
     # Another sample schedule refuses the checkpoint.

@@ -37,6 +37,7 @@ from tpuprt_torch.bsdf import bsdf as tB
 from tpuprt_torch.core import transform as tf
 from tpuprt_torch.integrators import common as tC
 from tpuprt_torch.lights import lights as tlights
+from tpuprt_torch.samplers import bc_gen as tbc
 from tpuprt_torch.samplers import samplers as tsmp
 from tpuprt_torch.scene.bridge import from_numpy_tables
 from tpuprt_torch.scene.build import SceneBuilder
@@ -51,7 +52,7 @@ N = 4096
 
 
 def test_bc_table_is_tpuprts():
-    np.testing.assert_array_equal(tsmp.load_bc_table(), bc_gen.load_table())
+    np.testing.assert_array_equal(tbc.load_table(), bc_gen.load_table())
 
 
 @pytest.mark.parametrize("cfg", [

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Reference images for chip_smoke.py's phase 36, from tpuprt on the CPU.
 
-    JAX_PLATFORMS=cpu python3 tools/volume_refs.py [fog] [smoke]
+    JAX_PLATFORMS=cpu python3 tools/volume_refs.py [fog] [smoke] [single]
         [--res 64] [--spp 4] [--integrator emission] [--dir DIR]
 
 Renders, with the JAX package's scan driver on the CPU, and writes as half
@@ -15,7 +15,13 @@ EXRs under scenes/:
 
 both at res x res x spp with the VolumeIntegrator `integrator`, by
 default chip_smoke.VOL_REF_INTEGRATOR ("emission", about 1.5 min for
-both: a jit of tpuprt's "single" render_chunk did not finish on the CPU).
+both: a jit of tpuprt's "single" render_chunk did not finish on the CPU);
+- single -> scenes/single_box.exr: chip_smoke.single_text's scene of its
+  own (14 triangles under Accelerator "none", a homogeneous region and a
+  4^3 volumegrid, a point and a disk area light, VolumeIntegrator
+  "single") at its own 16x16 x 1 spp, rendered eagerly (under
+  jax.disable_jit) since a jit of "single" does not finish; --res, --spp
+  and --integrator do not apply to it.
 The scene text, seed and sampler are the card's: chip_smoke.py renders
 the same text at the EXR's size and holds it to the image
 (chip_smoke.VOL_REF_REL, VOL_REF_MEAN). The driver is the scan ("scan"),
@@ -42,14 +48,16 @@ from tpuprt.io.exr import write_exr  # noqa: E402
 from tpuprt.scene.parser import load_scene_string  # noqa: E402
 
 CHUNK = 1 << 12
-OUT = {"fog": chip_smoke.FOG_EXR, "smoke": chip_smoke.SMOKE_EXR}
+OUT = {"fog": chip_smoke.FOG_EXR, "smoke": chip_smoke.SMOKE_EXR,
+       "single": chip_smoke.SINGLE_EXR}
 
 
-def render_to(name, text, out):
+def render_to(name, text, out, eager=False):
     scene, opts = load_scene_string(text)
     t0 = time.perf_counter()
-    rgb, alpha = R.render(scene, opts._replace(chunk_size=CHUNK,
-                                               driver="scan"))
+    with jax.disable_jit(eager):
+        rgb, alpha = R.render(scene, opts._replace(chunk_size=CHUNK,
+                                                   driver="scan"))
     secs = time.perf_counter() - t0
     write_exr(out, rgb, alpha)
     print(json.dumps(dict(image=name, shape=list(rgb.shape),
@@ -70,14 +78,17 @@ def main(argv=None):
                     "scenes/")
     args = ap.parse_args(argv)
     for name in args.which:
+        out = os.path.join(args.dir, os.path.basename(OUT[name])) \
+            if args.dir else OUT[name]
+        if name == "single":
+            render_to(name, chip_smoke.single_text(), out, eager=True)
+            continue
         src, text_of = {"fog": (chip_smoke.SCENE, chip_smoke.fog_text),
                         "smoke": (chip_smoke.BENCH3,
                                   chip_smoke.smoke_text)}[name]
         with open(src) as f:
             render_to(name, text_of(f.read(), args.res, args.spp,
-                                    args.integrator),
-                      os.path.join(args.dir, os.path.basename(OUT[name]))
-                      if args.dir else OUT[name])
+                                    args.integrator), out)
 
 
 if __name__ == "__main__":

@@ -50,7 +50,9 @@ def evaluate(kind: str, x, y, xwidth: float, ywidth: float):
         return _mitchell1d(x / xwidth) * _mitchell1d(y / ywidth)
     if kind == FILTER_SINC:
         return _sinc1d(x / xwidth) * _sinc1d(y / ywidth)
-    raise NotImplementedError(f'pixel filter "{kind}" is not ported')
+    # Another name loads (the parser keeps it with widths (2, 2)) and
+    # fails here, at the render's first splat, as tpuprt's does.
+    raise ValueError(f"unknown filter {kind}")
 
 
 def _mitchell1d(x, b=MITCHELL_B, c=MITCHELL_C):

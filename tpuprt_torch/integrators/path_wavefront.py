@@ -46,6 +46,7 @@ from ..film import film as film_mod
 from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import LIGHT_AREA, SceneData
+from ..utils.progress import ProgressReporter
 from ..volumes import regions as vr
 from . import common, photonmap, volume
 
@@ -110,8 +111,10 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     distribution `sel`, "whitted" or "photonmap", whose PhotonMaps and
     PhotonParams are `maps` and `prm`) with the volume integrator
     `vol_integrator`: bounce every live lane once, splat + regenerate
-    finished lanes. Returns (state, cursor)."""
+    finished lanes. Returns (state, cursor, lanes live at the pass's start,
+    lanes that hit: its NEE shadow rays), the counts as device tensors."""
     alive = st["alive"]
+    n_active = alive.sum()
     px, py, s_idx, bounce = st["px"], st["py"], st["s_idx"], st["bounce"]
     ro, rd = st["o"], st["d"]
     throughput, L = st["throughput"], st["L"]
@@ -138,6 +141,9 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
                             alpha)
     alive = alive & hit
     alpha = torch.where(first & hit, 1.0, alpha)
+    # Vertices shaded this pass: tpuprt's count of NEE shadow rays
+    # (path_wavefront.py:277-279).
+    n_shadow = alive.sum()
 
     dg = isect.hit_geometry(scene, pid, ro, rd, t)
     # Whitted needs the differentials at every bounce (they propagate
@@ -248,7 +254,7 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
         alpha=torch.where(regen, 0.0, alpha),
         specular=torch.where(regen, False, specular),
     )
-    return st_out, cursor + regen.sum()
+    return st_out, cursor + regen.sum(), n_active, n_shadow
 
 
 def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
@@ -269,11 +275,15 @@ def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
     return st
 
 
-def render(scene: SceneData, opts, device, maps=None):
+def render(scene: SceneData, opts, device, maps=None, progress=False,
+           stats=None):
     """Full-frame wavefront render of a scene whose tables live on
     `device`. Returns (rgb, alpha) as numpy f32 arrays. Mode "photonmap"
     renders with `maps` (photonmap.PhotonMaps on `device`), shooting them
-    first when none are given (path_wavefront.py:541-545)."""
+    first when none are given (path_wavefront.py:541-545). progress: a
+    ProgressReporter bar over the samples started, read once a pass.
+    stats: a StatsRegistry, given tpuprt's counters (path_wavefront.py:
+    608-614), summed on the device and read once after the last pass."""
     if opts.integrator not in SALTS:
         raise NotImplementedError(
             f'integrator "{opts.integrator}" has no wavefront pool (path, '
@@ -303,8 +313,11 @@ def render(scene: SceneData, opts, device, maps=None):
     # passes of its regeneration.
     pass_limit = math.ceil(total * (opts.max_depth + 2) / n_lanes) + \
         opts.max_depth + 8
+    rep = ProgressReporter(total, "Rendering") if progress else None
+    segments = shadow = 0
+    passes = done = 0
     for _ in range(pass_limit):
-        st, cursor = _step(scene, film, st, cursor,
+        st, cursor, n_active, n_shadow = _step(scene, film, st, cursor,
                            max_depth=opts.max_depth,
                            filter_kind=opts.filter_kind,
                            filter_xwidth=opts.filter_xwidth,
@@ -312,8 +325,25 @@ def render(scene: SceneData, opts, device, maps=None):
                            mode=opts.integrator, strategy=strategy, sel=sel,
                            maps=maps, prm=prm,
                            vol_integrator=opts.volume_integrator, **kw)
+        passes += 1
+        if stats is not None:
+            segments, shadow = segments + n_active, shadow + n_shadow
+        if rep is not None:
+            started = int(cursor)
+            rep.update(started - done)
+            done = started
         if not bool(st["alive"].any()):
             break
+    if rep is not None:
+        rep.done()
+    if stats is not None:
+        segments, shadow = float(segments), float(shadow)
+        stats.add("Wavefront", "Passes", passes)
+        stats.add("Wavefront", "Path segments traced", segments)
+        stats.add("Wavefront", "Shadow rays traced", shadow)
+        stats.add_ratio("Wavefront", "Lane occupancy", segments,
+                        float(passes) * n_lanes)
+        stats.add("Camera", "Samples taken", total)
     rgb, alpha = film_mod.develop(film)
     if opts.half_readback:
         rgb, alpha = film_mod.to_half(rgb, alpha)

@@ -506,7 +506,11 @@ def pdf_area_from_hit(scene: SceneData, light_id, p, wi, hit_p, hit_nn):
 
 def area_emission(scene: SceneData, area_id, nn, w):
     """AreaLight::L(p, n, w): one-sided Lemit (core/light.h:97-101); 0 where
-    area_id is -1."""
+    area_id is -1. Without lights it raises IndexError, where tpuprt's
+    gather from the empty table fails (tpuprt/lights/lights.py:525-528:
+    directlighting's scan Li on a scene without lights)."""
+    if scene.lights.count == 0:
+        raise IndexError("area_emission: the scene has no lights")
     L = scene.lights.spectrum[torch.clamp(area_id, min=0).long()]
     emits = (vm.dot(nn, w) > 0.0) & (area_id >= 0)
     return torch.where(emits[..., None], L, 0.0)

@@ -53,6 +53,7 @@ from .io import exr
 from .ops import bvh_cuda, mt_cuda
 from .samplers import samplers as smp
 from .scene.data import BvhAccel, SceneData, to_device
+from .utils.progress import ProgressReporter
 from .volumes import regions as vr
 
 # The integrators "auto" sends to the wavefront pool.
@@ -96,8 +97,8 @@ class RenderOptions(NamedTuple):
 
 
 def render(scene: SceneData, opts: RenderOptions, device="cuda",
-           maps=None, aux=None, stats: dict = None,
-           checkpoint_path: str = None, resume: bool = False):
+           maps=None, aux=None, stats=None, checkpoint_path: str = None,
+           resume: bool = False, progress: bool = False):
     """Full-frame render on `device`: the card by default (the traversal
     kernels), or "cpu" on request (their plain versions). Without a CUDA
     device a render that did not ask for the CPU raises. Returns (rgb
@@ -106,11 +107,13 @@ def render(scene: SceneData, opts: RenderOptions, device="cuda",
     (tpuprt/render.py:262-267), unless `maps` (integrators.photonmap.
     PhotonMaps) are given; a render of the chunked driver runs its
     integrator's preprocess first unless `aux` (its result) is given.
-    stats, when given, receives the chunked driver's preprocess seconds,
-    the preprocess's own stats, and its chunks. checkpoint_path, resume:
-    the chunked driver saves the film and its next chunk there with each
-    partial image (writefrequency), and with resume starts from the
-    checkpoint found there (tpuprt/render.py:287-318)."""
+    stats: a utils.stats.StatsRegistry that receives tpuprt's counters
+    (tpuprt/render.py:213-236), the pool's or the chunked driver's
+    (render_chunked). progress: a ProgressReporter bar on stderr.
+    checkpoint_path, resume: the chunked driver saves the film and its
+    next chunk there with each partial image (writefrequency), and with
+    resume starts from the checkpoint found there (tpuprt/render.py:
+    287-318)."""
     require_device("render()", device)
     if opts.driver not in DRIVERS:
         raise ValueError(f"unknown driver {opts.driver!r}; one of {DRIVERS}")
@@ -120,10 +123,12 @@ def render(scene: SceneData, opts: RenderOptions, device="cuda",
             opts.integrator == "photonmap" and vr.present(scene.volumes))
     if opts.driver == "wavefront" or (opts.driver == "auto" and pool_ok):
         kw = {} if maps is None else {"maps": to_device(maps, device)}
-        return path_wavefront.render(scene, opts, device, **kw)
+        return path_wavefront.render(scene, opts, device, progress=progress,
+                                     stats=stats, **kw)
     return render_chunked(scene, opts, device,
                           aux=maps if aux is None else aux, stats=stats,
-                          checkpoint_path=checkpoint_path, resume=resume)
+                          checkpoint_path=checkpoint_path, resume=resume,
+                          progress=progress)
 
 
 def compose_volumes(scene: SceneData, opts: RenderOptions, L, o, d, mint,
@@ -154,7 +159,14 @@ def require_device(caller: str, device):
 def on_device(scene: SceneData, device) -> SceneData:
     """The scene's tables on `device` as the renderer walks them: of a BVH
     only the format the front end walks, and for the brute force the
-    dense kernel's triangles packed once (tris_packed)."""
+    dense kernel's triangles packed once (tris_packed). A scene whose main
+    aggregate holds no triangle or quadric (instances only, or an object
+    never instanced) loads, and raises IndexError here, as every render
+    of it by tpuprt fails in hit_geometry's gather from the empty quadric
+    table (tpuprt/accel/intersect.py:242-244)."""
+    if not (scene.triangles.count or scene.quadrics.count):
+        raise IndexError("the scene's main aggregate holds no triangle or "
+                         "quadric")
     if isinstance(scene.accel, BvhAccel):
         scene = dataclasses.replace(scene,
                                     accel=bvh_cuda.walked_only(scene.accel))
@@ -285,24 +297,41 @@ def load_checkpoint(path: str, opts: RenderOptions, device="cuda"):
 
 
 def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
-                   stats: dict = None, checkpoint_path: str = None,
-                   resume: bool = False):
+                   stats=None, checkpoint_path: str = None,
+                   resume: bool = False, progress: bool = False):
     """The chunked driver (tpuprt/render.py:246-330) on a scene whose
     tables live on `device`: chunks sized from free memory, or by
     opts.chunk_size when a checkpoint, a resume or a writefrequency is
     asked for; every `writefrequency` samples (in whole chunks) but after
     the last chunk, the partial image to opts.filename and, with
     checkpoint_path, the checkpoint; with resume, the chunks after a
-    checkpoint found at checkpoint_path."""
+    checkpoint found at checkpoint_path. progress: a bar over the chunks.
+    stats (a StatsRegistry) receives tpuprt's counters (tpuprt/render.py:
+    333-342): the samples taken (those of the chunks rendered; tpuprt's
+    fixed chunks count their padding lanes too), the rays generated with
+    their differentials, the chunks, the wall and samples per second; and
+    the port's own: the chunk's lanes, the preprocess's seconds and its
+    counts (category "Preprocess": a list summed, a dict's entries as
+    "<key> <entry>", None left out)."""
     t0 = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    pre = {} if stats is not None else None
     if aux is None:
-        aux = preprocess(scene, opts, stats)
+        aux = preprocess(scene, opts, pre)
     else:
         aux = to_device(aux, device)
     if stats is not None:
-        if torch.device(device).type == "cuda":
+        if cuda:
             torch.cuda.synchronize(device)
-        stats["preprocess_s"] = time.perf_counter() - t0
+        stats.add("Performance", "Preprocess seconds",
+                  time.perf_counter() - t0)
+        for k, v in pre.items():
+            for name, x in (v.items() if isinstance(v, dict) else
+                            [(None, v)]):
+                if x is not None:       # None: a map that never filled
+                    stats.add("Preprocess", k if name is None else
+                              f"{k} {name}", sum(x) if isinstance(x, list)
+                              else x)
     film = film_mod.make_film(opts.xres, opts.yres, opts.crop, device)
     xstart, xcount, ystart, ycount = film_mod.pixel_extent(film)
     spp = smp.samples_per_pixel(opts.sampler)
@@ -317,6 +346,8 @@ def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
         film, start = load_checkpoint(checkpoint_path, opts, device)
     write_every = math.ceil(opts.writefrequency / chunk) \
         if opts.writefrequency > 0 else 0
+    rep = ProgressReporter(n_chunks - start, "Rendering") if progress \
+        else None
     for c in range(start, n_chunks):
         lin = torch.arange(c * chunk, min((c + 1) * chunk, total),
                            device=device)
@@ -331,10 +362,25 @@ def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
                           alpha_p.cpu().numpy())
             if checkpoint_path is not None:
                 save_checkpoint(checkpoint_path, film, c + 1, opts)
-    if stats is not None:
-        stats.update(chunks=n_chunks - start, chunk_lanes=chunk)
+        if rep is not None:
+            if cuda:
+                torch.cuda.synchronize(device)
+            rep.update()
+    if rep is not None:
+        rep.done()
     rgb, alpha = film_mod.develop(film)
     if opts.half_readback:
         rgb, alpha = film_mod.to_half(rgb, alpha)
-    return (rgb.to(torch.float32).cpu().numpy(),
-            alpha.to(torch.float32).cpu().numpy().astype(np.float32))
+    rgb = rgb.to(torch.float32).cpu().numpy()
+    if stats is not None:
+        wall = time.perf_counter() - t0
+        samples = total - min(start * chunk, total)
+        stats.add("Camera", "Samples taken", samples)
+        stats.add("Camera", "Rays generated (incl. differentials)",
+                  3 * samples)
+        stats.add("Film", "Wavefront chunks", n_chunks - start)
+        stats.add("Film", "Chunk lanes", chunk)
+        stats.add("Performance", "Wall-clock seconds", round(wall, 3))
+        stats.add("Performance", "Samples per second",
+                  int(samples / max(wall, 1e-9)))
+    return rgb, alpha.to(torch.float32).cpu().numpy().astype(np.float32)

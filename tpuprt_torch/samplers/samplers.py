@@ -20,17 +20,15 @@ Each draws the image position, the lens sample and the shutter time.
 from __future__ import annotations
 
 import math
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core import rng
+from . import bc_gen
 
 KINDS = ("stratified", "random", "lowdiscrepancy", "bestcandidate")
-BC_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "bc_table.npy")
 
 
 class SamplerConfig(NamedTuple):
@@ -71,13 +69,6 @@ def _pixel_hash(px, py, seed=0):
 _BC_CACHE: dict = {}
 
 
-def load_bc_table() -> np.ndarray:
-    """The baked best-candidate table f32[4096, 5] (image x, image y,
-    time, lens u, lens v), as tpuprt's samplers/bc_gen.load_table reads
-    it."""
-    return np.load(BC_TABLE)
-
-
 def bc_tables(spp: int, device):
     """(tile width, cell -> entry map i32[tw*tw, spp], fallback mask,
     table f32[4096, 5]) for the best-candidate sampler at spp
@@ -86,7 +77,7 @@ def bc_tables(spp: int, device):
     got = _BC_CACHE.get(key)
     if got is not None:
         return got
-    t = load_bc_table()
+    t = bc_gen.load_table()
     n = len(t)
     tw = max(int(round(math.sqrt(n / max(spp, 1)))), 1)
     cells = np.minimum((t[:, 0:2] * tw).astype(np.int64), tw - 1)

@@ -27,6 +27,7 @@ from ..accel.kdtree_build import build_kdtree
 from ..core import transform as tf
 from ..materials.factory import MATERIAL_KINDS, build_templates
 from ..textures.graph import TexGraph, TexNodeMeta, check_node
+from ..utils import errors
 from . import data as D
 
 
@@ -142,9 +143,9 @@ class SceneBuilder:
     # ---- materials ------------------------------------------------------
     def add_material(self, kind: str, tex_slots: List[int],
                      bump: int = -1) -> int:
-        """`bump`: the displacement texture's node id, -1 for none."""
-        if kind not in MATERIAL_KINDS:
-            raise NotImplementedError(f'material "{kind}" is not ported')
+        """`bump`: the displacement texture's node id, -1 for none. Another
+        kind raises KeyError, as tpuprt's builder (the parser makes an
+        unknown material matte before it gets here)."""
         slots = list(tex_slots) + [-1] * (8 - len(tex_slots))
         self.materials.append((MATERIAL_KINDS[kind], slots[:8], bump))
         return len(self.materials) - 1
@@ -411,9 +412,12 @@ class SceneBuilder:
         elif q.kind == D.QUADRIC_CYLINDER:
             area = (p[2] - p[1]) * p[0] * p[3]
         else:
-            raise NotImplementedError(
-                f"area lights on quadric kind {q.kind} are not ported (pbrt-"
-                "v1 samples spheres, disks and cylinders only)")
+            # tpuprt's builder warns and takes the sphere's formula
+            # (tpuprt/scene/build.py:426-431); its parser never asks.
+            errors.warning("area light on unsupported quadric kind "
+                           f"{q.kind}; the reference Severe()s here "
+                           "(core/shape.h:85-91). Using sphere formula.")
+            area = p[3] * p[0] * abs(p[2] - p[1])
         self.lights.append(_Light(D.LIGHT_AREA, q.o2w,
                                   np.asarray(L, np.float32),
                                   nsamples=nsamples, area_first=quadric_id,
@@ -488,9 +492,6 @@ class SceneBuilder:
 
     # ---- build ----------------------------------------------------------
     def build(self) -> D.SceneData:
-        if not (self.meshes or self.quadrics):
-            raise NotImplementedError("scenes without triangles or quadrics "
-                                      "in the main aggregate are not ported")
         qs = self.quadrics
         if qs:
             quad = D.QuadricTable(
@@ -582,8 +583,6 @@ class SceneBuilder:
                             nodes=tuple(self.tex_nodes))
 
         nl = len(self.lights)
-        if not nl:
-            raise NotImplementedError("scenes without lights are not ported")
         ls = self.lights
         # A mesh emitter's first triangle, and every light's segment of the
         # packed area CDF (tpuprt/scene/build.py:603-628): a mesh emitter's
@@ -623,13 +622,17 @@ class SceneBuilder:
                 env_dists.append(_build_env_dist(self.images[l.image][0][0]))
             inf_meta.append((i, l.image, imp))
         i32 = lambda v: _t(np.asarray(v, np.int32))
+        # A scene without lights gets tpuprt's empty table (tpuprt/scene/
+        # build.py:665-674): its one CDF entry is 0.
+        rows = lambda f, shape: _t(np.stack([f(l) for l in ls]) if ls else
+                                   np.zeros((0,) + shape, np.float32))
         lt_tab = D.LightTable(
             kind=i32([l.kind for l in ls]),
-            l2w=_t(np.stack([l.l2w for l in ls])),
-            w2l=_t(np.stack([np.linalg.inv(l.l2w).astype(np.float32)
-                             for l in ls])),
-            spectrum=_t(np.stack([l.spectrum for l in ls])),
-            params=_t(np.stack([l.params for l in ls])),
+            l2w=rows(lambda l: l.l2w, (4, 4)),
+            w2l=rows(lambda l: np.linalg.inv(l.l2w).astype(np.float32),
+                     (4, 4)),
+            spectrum=rows(lambda l: l.spectrum, (3,)),
+            params=rows(lambda l: l.params, (8,)),
             nsamples=i32([l.nsamples for l in ls]),
             image=i32([l.image for l in ls]),
             area_geom_kind=i32([l.area_geom_kind for l in ls]),
@@ -638,7 +641,7 @@ class SceneBuilder:
             area_total_area=_t(np.asarray([l.area_total for l in ls],
                                           np.float32)),
             cdf_offset=i32(cdf_off),
-            area_cdf=_t(np.asarray(cdf_flat, np.float32)),
+            area_cdf=_t(np.asarray(cdf_flat or [0.0], np.float32)),
             count=nl,
             kinds_present=tuple(sorted({l.kind for l in ls})),
             area_geoms_present=tuple(sorted({
@@ -664,8 +667,12 @@ class SceneBuilder:
         for m in self.meshes:
             los.append(m.verts.min(0))
             his.append(m.verts.max(0))
-        wlo = np.minimum.reduce(los).astype(np.float32)
-        whi = np.maximum.reduce(his).astype(np.float32)
+        if los:
+            wlo = np.minimum.reduce(los).astype(np.float32)
+            whi = np.maximum.reduce(his).astype(np.float32)
+        else:
+            wlo = np.full(3, -1.0, np.float32)
+            whi = np.full(3, 1.0, np.float32)
 
         # The volume regions; the world bound covers them
         # (tpuprt/scene/build.py:704-727).
@@ -695,11 +702,13 @@ class SceneBuilder:
         # kd-tree with the statement's SAH knobs; "bvh", or "auto" above
         # 4096 prims, the BVH; "grid", or "auto" between 65 and 4096 prims,
         # the grid; "auto" at 64 prims or fewer, "none" and any other name
-        # leave none (brute force).
+        # leave none (brute force), as does an empty main aggregate.
         nprims = len(qs) + nt_total
         kind = self.accel_kind
         accel = None
-        if kind == "kdtree":
+        if nprims == 0:
+            pass
+        elif kind == "kdtree":
             kw = {k: v for k, v in self.accel_params.items()
                   if k in ("isect_cost", "trav_cost", "empty_bonus",
                            "max_prims", "max_depth")}

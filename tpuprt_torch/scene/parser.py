@@ -28,14 +28,29 @@ shapes, emitters included, routed as tpuprt routes them
 prototype placed by ray-transform instancing, an emissive one only under
 a similarity transform (each placement its own light); every other shape
 is folded into a row of its own table under the instance's transform.
-What raises NotImplementedError: a statement outside that list (Include,
-CoordinateSystem, CoordSysTransform, MakeNamedMaterial and the like), an
-area light on a cone, paraboloid or hyperboloid, an AreaLightSource other
-than "area", an unknown Camera, PixelFilter, SurfaceIntegrator, Material
-or LightSource, and a scene without lights or without a triangle or
-quadric outside its instances. Image files (an imagemap's "filename", a
-light's "mapname") are read relative to the scene file's directory, as
-tpuprt reads them.
+Also Include (nested; a file named relative to the including file's
+directory), SearchPath (its values consumed), Identity, and
+CoordinateSystem/CoordSysTransform with the named transforms "camera" (the
+inverse of the CTM at Camera) and "world" (the identity at WorldBegin);
+an unknown name leaves the CTM as it is. Image files (an imagemap's
+"filename", a light's "mapname") are read relative to the top file's
+directory, as tpuprt reads them.
+
+Where tpuprt warns or falls back, so does the port, with tpuprt's warning
+lines on stderr (utils/errors.py): an unknown statement is warned about
+and its parameters skipped; every parameter a Texture, LightSource,
+top-level Shape, Volume, Camera, Sampler, Film, PixelFilter,
+SurfaceIntegrator or Accelerator statement did not read is warned about
+(ParamSet.report_unused); an unknown Material is matte; an unknown Shape
+makes its material and no shape, an unknown LightSource or Volume kind
+nothing; any AreaLightSource name reads as "area", which only a sphere,
+disk, cylinder or mesh takes (a cone, paraboloid or hyperboloid under it
+emits nothing); an unknown Camera is "environment", an unknown
+SurfaceIntegrator "directlighting"; an unknown PixelFilter keeps its name
+with widths (2, 2) and fails where the render evaluates it
+(filters.evaluate, ValueError), as tpuprt's. A scene without lights, or
+whose main aggregate is empty, loads; what tpuprt's render fails on there
+raises in the port too (render.on_device, lights.area_emission).
 
 Bracketed number lists are converted with numpy in one call per list, not
 per token, so a multi-megabyte mesh parses in seconds. Values go through
@@ -62,6 +77,7 @@ from ..io.mipmap_build import build_pyramid
 from ..materials.factory import MATERIAL_KINDS
 from ..samplers.samplers import SamplerConfig
 from ..textures.graph import TexNodeMeta
+from ..utils import errors
 from . import data as D
 from .build import SceneBuilder, is_similarity
 from .tessellate import tessellate
@@ -69,12 +85,17 @@ from .tessellate import tessellate
 _TOKEN_RE = re.compile(r'"([^"]*)"|\[|\]|([^\s"\[\]]+)')
 # The shapes that become triangle meshes, and so may be a prototype.
 MESH_KINDS = ("trianglemesh", "loopsubdiv", "nurbs", "heightfield")
+QUADRIC_KINDS = ("sphere", "cylinder", "disk", "cone", "paraboloid",
+                 "hyperboloid")
 
 
-def tokenize(text: str):
+def tokenize(text: str, basedir: str = "."):
     """Tokens as (kind, value): ("str", s), ("id", s), or ("nums", f64
     array) for a bracketed list of numbers; ("list", [...]) for a bracketed
-    list holding strings. # comments run to the end of the line."""
+    list holding strings. # comments run to the end of the line. An
+    Include statement is replaced by its file's tokens, the file named
+    relative to `basedir` and its own Includes relative to its directory,
+    as tpuprt's tokenizer reads them (tpuprt/scene/parser.py:57-62)."""
     text = "\n".join(line.split("#", 1)[0] for line in text.splitlines())
     pos, n = 0, len(text)
     toks = []
@@ -97,6 +118,12 @@ def tokenize(text: str):
                 toks.append(("nums", np.array(body.split(), np.float64)))
         elif m.group(0) == "]":
             raise ValueError("unbalanced ']' in scene text")
+        elif m.group(2) == "Include":
+            m = _TOKEN_RE.search(text, pos)
+            pos = m.end()
+            path = os.path.join(basedir, m.group(1) or m.group(2))
+            with open(path) as f:
+                toks.extend(tokenize(f.read(), os.path.dirname(path)))
         else:
             toks.append(("id", m.group(2)))
     return toks
@@ -113,12 +140,23 @@ def _value_list(kind, value):
 
 
 class ParamSet:
-    """Typed lookup with defaults (core/paramset.h FindOne* semantics)."""
+    """Typed lookup with defaults (core/paramset.h FindOne* semantics).
+    Every name looked up is recorded, so report_unused can warn of the
+    parameters nothing read (core/paramset.cpp:242 ReportUnused)."""
 
     def __init__(self, raw: Dict[str, Tuple[str, object]]):
         self.raw = raw
+        self._looked = set()
+
+    def report_unused(self, where: str):
+        """Warn of every parameter not looked up, in the file's order
+        (tpuprt/scene/parser.py:139-143)."""
+        for name in self.raw:
+            if name not in self._looked:
+                errors.warning(f'parameter "{name}" not used', where)
 
     def find_one(self, name, default):
+        self._looked.add(name)
         if name not in self.raw:
             return default
         vals = self.raw[name][1]
@@ -132,6 +170,7 @@ class ParamSet:
         return v
 
     def find_spectrum(self, name, default):
+        self._looked.add(name)
         if name not in self.raw:
             return np.asarray(default, np.float32)
         vals = np.asarray(self.raw[name][1], np.float64)
@@ -140,25 +179,30 @@ class ParamSet:
         return vals[:3].astype(np.float32)
 
     def find_point(self, name, default):
+        self._looked.add(name)
         if name not in self.raw:
             return np.asarray(default, np.float32)
         return np.asarray(self.raw[name][1][:3], np.float64).astype(
             np.float32)
 
     def find_floats(self, name):
+        self._looked.add(name)
         if name not in self.raw:
             return None
         return np.asarray(self.raw[name][1], np.float64).astype(np.float32)
 
     def find_ints(self, name):
+        self._looked.add(name)
         if name not in self.raw:
             return None
         return np.asarray(self.raw[name][1], np.float64).astype(np.int32)
 
     def is_texture(self, name):
+        self._looked.add(name)
         return name in self.raw and self.raw[name][0] == "texture"
 
     def texture_name(self, name):
+        self._looked.add(name)
         return self.raw[name][1][0]
 
 
@@ -189,11 +233,11 @@ class _Stream:
         params = {}
         while self.peek() is not None and self.peek()[0] == "str":
             decl = self.next()[1].split()
+            if len(decl) != 2:
+                continue          # not a declaration: its values stay
             if self.peek() is None:
                 break
-            kind, v = self.next()
-            if len(decl) == 2:
-                params[decl[1]] = (decl[0], _value_list(kind, v))
+            params[decl[1]] = (decl[0], _value_list(*self.next()))
         return ParamSet(params)
 
 
@@ -223,6 +267,11 @@ class PbrtParser:
         self.integrator_name = "directlighting"
         self.integrator_params = ParamSet({})
         self.volume_integrator_name = "emission"
+        self.accel_name = "kdtree"
+        self.accel_params = ParamSet({})
+        # Named coordinate systems (CoordinateSystem, and "camera" and
+        # "world" as tpuprt records them).
+        self.coord_systems: Dict[str, np.ndarray] = {}
         # Object name -> its recorded shapes (kind, params, ctm, graphics
         # state ([material, material id], area light, reverse
         # orientation)); (object, shape index) -> prototype id, so the
@@ -232,7 +281,7 @@ class PbrtParser:
         self._proto_cache: Dict[Tuple[str, int], int] = {}
 
     def parse_string(self, text: str):
-        ts = _Stream(tokenize(text))
+        ts = _Stream(tokenize(text, self.basedir))
         while ts.peek() is not None:
             kind, tok = ts.next()
             if kind == "id":
@@ -254,6 +303,18 @@ class PbrtParser:
         elif name in ("Transform", "ConcatTransform"):
             m = np.asarray(ts.numbers(16), np.float32).reshape(4, 4).T
             self.ctm = m if name == "Transform" else self.ctm @ m
+        elif name == "Identity":
+            self.ctm = np.eye(4, dtype=np.float32)
+        elif name == "CoordinateSystem":
+            self.coord_systems[ts.next()[1]] = self.ctm.copy()
+        elif name == "CoordSysTransform":
+            # An unknown name leaves the CTM as it is (tpuprt/scene/
+            # parser.py:283-286).
+            cs = self.coord_systems.get(ts.next()[1])
+            if cs is not None:
+                self.ctm = cs.copy()
+        elif name == "SearchPath":
+            ts.next()             # plugin directories mean nothing here
         elif name == "AttributeBegin":
             self.gs_stack.append((self.material, self.material_id,
                                   self.area_light, self.reverse_orientation))
@@ -269,6 +330,7 @@ class PbrtParser:
         elif name == "TransformEnd":
             self.ctm = self.ctm_stack.pop()
         elif name == "WorldBegin":
+            self.coord_systems["world"] = np.eye(4, dtype=np.float32)
             self.ctm = np.eye(4, dtype=np.float32)
         elif name == "WorldEnd":
             pass
@@ -276,6 +338,7 @@ class PbrtParser:
             self.camera_name = ts.next()[1]
             self.camera_params = ts.params()
             self.camera_w2c = self.ctm.copy()
+            self.coord_systems["camera"] = np.linalg.inv(self.ctm)
         elif name == "Sampler":
             self.sampler_name = ts.next()[1]
             self.sampler_params = ts.params()
@@ -292,11 +355,12 @@ class PbrtParser:
             self.volume_integrator_name = ts.next()[1]
             ts.params()
         elif name == "Volume":
-            kind = ts.next()[1]
-            self._make_volume(kind, ts.params())
+            kind, params = ts.next()[1], ts.params()
+            self._make_volume(kind, params)
+            params.report_unused(f'Volume "{kind}"')
         elif name == "Accelerator":
-            self.builder.accel_kind = ts.next()[1]
-            params = ts.params()
+            self.accel_name = self.builder.accel_kind = ts.next()[1]
+            self.accel_params = params = ts.params()
             # kd-tree SAH knobs (accelerators/kdtree.cpp:489-498).
             for src, dst in (("intersectcost", "isect_cost"),
                              ("traversalcost", "trav_cost"),
@@ -315,20 +379,23 @@ class PbrtParser:
             tex_name = ts.next()[1]
             tex_type = ts.next()[1]   # "float" | "color"
             tex_class = ts.next()[1]
+            params = ts.params()
             self.named_textures[tex_name] = self._make_texture(
-                tex_class, tex_type, ts.params())
+                tex_class, tex_type, params)
+            params.report_unused(f'Texture "{tex_name}" ({tex_class})')
         elif name == "LightSource":
-            self._make_light(ts.next()[1], ts.params())
-        elif name == "AreaLightSource":
             kind, params = ts.next()[1], ts.params()
-            if kind != "area":
-                raise NotImplementedError(
-                    f'area light "{kind}" is not ported')
-            self.area_light = params
+            self._make_light(kind, params)
+            params.report_unused(f'LightSource "{kind}"')
+        elif name == "AreaLightSource":
+            # Any name reads as "area" (tpuprt/scene/parser.py:359-361).
+            ts.next()
+            self.area_light = ts.params()
         elif name == "Shape":
             kind, params = ts.next()[1], ts.params()
             if self.current_object is None:
                 self._make_shape(kind, params, self.ctm, self._gs())
+                params.report_unused(f'Shape "{kind}"')
             else:
                 self.objects[self.current_object].append(
                     (kind, params, self.ctm.copy(),
@@ -344,7 +411,10 @@ class PbrtParser:
         elif name == "ObjectInstance":
             self._instance(ts.next()[1])
         else:
-            raise NotImplementedError(f'statement "{name}" is not ported')
+            # tpuprt warns and skips the statement's parameters (tpuprt/
+            # scene/parser.py:443-448); pbrt-v1's parser stops on it.
+            errors.warning(f'unknown directive "{name}" ignored')
+            ts.params()
 
     def _child(self, params, name, default, is_float=False) -> int:
         """TextureParams::Get*Texture (core/paramset.h:162-215)."""
@@ -406,7 +476,9 @@ class PbrtParser:
                 self._child(params, "opacity", (1.0,) * 3)], bump=bump)
         if kind in MATERIAL_KINDS:     # the six measured materials
             return self.builder.add_material(kind, [], bump=bump)
-        raise NotImplementedError(f'material "{kind}" is not ported')
+        # Any other name is matte, as tpuprt makes it (tpuprt/scene/
+        # parser.py:515-517).
+        return self.builder.matte()
 
     def _gs(self):
         """The current graphics state as a shape is made with it: (None
@@ -458,9 +530,8 @@ class PbrtParser:
 
     def _make_volume(self, kind: str, params: ParamSet):
         """Volume (tpuprt/scene/parser.py:765-789): a region under the
-        current transform."""
-        if kind not in ("homogeneous", "exponential", "volumegrid"):
-            raise NotImplementedError(f'volume "{kind}" is not ported')
+        current transform; another kind reads the common parameters and is
+        skipped, as tpuprt skips it."""
         common = dict(
             v2w=self.ctm, p0=params.find_point("p0", (0, 0, 0)),
             p1=params.find_point("p1", (1, 1, 1)),
@@ -477,6 +548,8 @@ class PbrtParser:
                           density_shape=(params.find_one("nx", 1),
                                          params.find_one("ny", 1),
                                          params.find_one("nz", 1)))
+        elif kind != "homogeneous":
+            return
         self.builder.add_volume(kind, **common)
 
     def _make_texture(self, tex_class, tex_type, params) -> int:
@@ -623,8 +696,7 @@ class PbrtParser:
             b.add_goniometric_light(
                 l2w, params.find_spectrum("I", (1.0,) * 3),
                 self._load_image(fname) if fname else -1)
-        else:
-            raise NotImplementedError(f'light "{kind}" is not ported')
+        # Another kind makes no light (tpuprt/scene/parser.py:635-682).
 
     @staticmethod
     def _coord_sys(v):
@@ -644,16 +716,10 @@ class PbrtParser:
         shape (a tessellated one as a triangle mesh), then its area
         light."""
         b = self.builder
-        if kind not in MESH_KINDS + ("sphere", "cylinder", "disk", "cone",
-                                     "paraboloid", "hyperboloid"):
-            raise NotImplementedError(f'shape "{kind}" is not ported')
         mat_ref, al, ro = gs
-        if al is not None and kind not in MESH_KINDS + (
-                "sphere", "cylinder", "disk"):
-            raise NotImplementedError(
-                f'area lights on shape "{kind}" are not ported (spheres, '
-                "disks, cylinders and triangle meshes)")
         mat = self._gs_material(mat_ref)
+        if kind not in MESH_KINDS + QUADRIC_KINDS:
+            return                # tpuprt makes the material, no shape
         one = params.find_one
         if kind in MESH_KINDS:
             P, idx, N, uv = _mesh_arrays(kind, params)
@@ -688,7 +754,10 @@ class PbrtParser:
             qid = b.add_hyperboloid(ctm, params.find_point("p1", (0, 0, 0)),
                                     params.find_point("p2", (1, 1, 1)),
                                     one("phimax", 360.0), mat, -1, ro)
-        if al is not None:
+        # tpuprt attaches an area light to these three only (tpuprt/scene/
+        # parser.py:702-733): a cone, paraboloid or hyperboloid under an
+        # AreaLightSource emits nothing.
+        if al is not None and kind in ("sphere", "cylinder", "disk"):
             b.add_area_light_sphere(qid, al.find_spectrum("L", (1.0,) * 3),
                                     al.find_one("nsamples", 1))
 
@@ -701,10 +770,6 @@ class PbrtParser:
         crop = fp.find_floats("cropwindow")
         crop = tuple(float(c) for c in crop) if crop is not None \
             else (0.0, 1.0, 0.0, 1.0)
-        if self.camera_name not in ("perspective", "orthographic",
-                                    "environment"):
-            raise NotImplementedError(
-                f'camera "{self.camera_name}" is not ported')
         c2w = np.linalg.inv(self.camera_w2c).astype(np.float32)
         p = self.camera_params
         hither = max(1e-4, p.find_one("hither", 1e-3))
@@ -718,7 +783,9 @@ class PbrtParser:
         screen = p.find_floats("screenwindow")
         if screen is None:
             screen = cam.default_screen_window(xres, yres, frameaspect)
-        if self.camera_name == "environment":
+        if self.camera_name not in ("perspective", "orthographic"):
+            # "environment", and any other name as tpuprt reads it
+            # (tpuprt/scene/parser.py:830-832).
             camera = cam.build_environment(c2w, hither, yon, sopen, sclose)
         else:
             kind, proj = (
@@ -747,15 +814,15 @@ class PbrtParser:
                                  pixelsamples=sp.find_one("pixelsamples", 4))
         # The filter's widths, as tpuprt reads them: its "B"/"C",
         # "alpha" and "tau" keep their defaults (tpuprt/render.py:158-160).
-        if self.filter_name not in DEFAULT_WIDTHS:
-            raise NotImplementedError(
-                f'pixel filter "{self.filter_name}" is not ported')
-        fw = DEFAULT_WIDTHS[self.filter_name]
-        if self.integrator_name not in (
-                "directlighting", "path", "whitted", "debug", "photonmap",
-                "exphotonmap", "igi", "irradiancecache", "bidirectional"):
-            raise NotImplementedError(
-                f'integrator "{self.integrator_name}" is not ported')
+        # Another name keeps widths (2, 2) and fails where the render
+        # evaluates it, as tpuprt's (filters.evaluate).
+        fw = DEFAULT_WIDTHS.get(self.filter_name, (2.0, 2.0))
+        # Another integrator name is directlighting (tpuprt/scene/
+        # parser.py:909).
+        integrator = self.integrator_name if self.integrator_name in (
+            "directlighting", "path", "whitted", "debug", "photonmap",
+            "exphotonmap", "igi", "irradiancecache", "bidirectional") \
+            else "directlighting"
         # CreateSurfaceIntegrator's parameters, read as tpuprt reads them
         # (tpuprt/scene/parser.py:850-914): finalgather defaults to true.
         ip = self.integrator_params
@@ -801,13 +868,23 @@ class PbrtParser:
             xres=xres, yres=yres, sampler=scfg, filter_kind=self.filter_name,
             filter_xwidth=self.filter_params.find_one("xwidth", fw[0]),
             filter_ywidth=self.filter_params.find_one("ywidth", fw[1]),
-            integrator=self.integrator_name,
+            integrator=integrator,
             volume_integrator=("single" if self.volume_integrator_name ==
                                "single" else "emission"),
             max_depth=self.integrator_params.find_one("maxdepth", 5),
             filename=fp.find_one("filename", "pbrt.exr"), crop=crop,
             writefrequency=fp.find_one("writefrequency", -1),
             photon=photon, igi=igi_p, irrad=irrad)
+        # Read and unused, as tpuprt reads it: the EXR is always linear.
+        fp.find_one("premultiplyalpha", True)
+        for ps, where in (
+                (self.camera_params, f'Camera "{self.camera_name}"'),
+                (self.sampler_params, f'Sampler "{self.sampler_name}"'),
+                (fp, 'Film "image"'),
+                (self.filter_params, f'PixelFilter "{self.filter_name}"'),
+                (ip, f'SurfaceIntegrator "{self.integrator_name}"'),
+                (self.accel_params, f'Accelerator "{self.accel_name}"')):
+            ps.report_unused(where)
         return self.builder.build(), opts
 
 
