@@ -1620,6 +1620,10 @@ def profile_render(label, scene, opts, device, ranges=(), **extra):
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 ranges_ms[ev.name] += ev.device_time_total / 1e3
             continue
+        # A record_function range (the renderer's tpuprt/<stage> spans)
+        # has a device-typed copy that spans its kernels: not a kernel.
+        if getattr(ev, "is_user_annotation", False):
+            continue
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us() / 1e3

@@ -25,6 +25,7 @@ from ..scene.data import (QUADRIC_CONE, QUADRIC_CYLINDER, QUADRIC_DISK,
                           QUADRIC_HYPERBOLOID, QUADRIC_PARABOLOID, GridAccel,
                           KdTreeAccel, SceneData)
 from ..shapes import quadrics, triangle
+from ..utils.stats import span
 from . import bvh as bvh_mod
 from . import grid as grid_mod
 from . import instances as inst_mod
@@ -102,29 +103,32 @@ def intersect_ids(scene: SceneData, o, d, mint, maxt):
     """Nearest-hit (t, prim_id, hit) without differential geometry. The
     instanced geometry is a second aggregate: its hits are min-combined
     with the main one, and an instanced winner's t is recomputed through
-    the world-space triangle test."""
-    t, pid, hit = _main_intersect(scene, o, d, mint, maxt)
-    if _has_instances(scene):
-        inst = scene.instances
-        ti, code, hi_ = inst_mod.intersect(inst, o, d, mint, maxt)
-        t_id, valid_i = inst_mod.recompute_t(inst, code, o, d, mint, hi_)
-        ti = torch.where(hi_ & valid_i, t_id, torch.where(hi_, ti, _BIG))
-        t_main = torch.where(hit, t, _BIG)
-        choose = hi_ & (ti < t_main)
-        t = torch.where(choose, ti, t_main)
-        base = _nq(scene) + scene.triangles.count
-        pid = torch.where(choose, base + code, pid)
-        hit = hit | hi_
-    return t, pid, hit
+    the world-space triangle test. The span "intersect"."""
+    with span("intersect"):
+        t, pid, hit = _main_intersect(scene, o, d, mint, maxt)
+        if _has_instances(scene):
+            inst = scene.instances
+            ti, code, hi_ = inst_mod.intersect(inst, o, d, mint, maxt)
+            t_id, valid_i = inst_mod.recompute_t(inst, code, o, d, mint, hi_)
+            ti = torch.where(hi_ & valid_i, t_id, torch.where(hi_, ti, _BIG))
+            t_main = torch.where(hit, t, _BIG)
+            choose = hi_ & (ti < t_main)
+            t = torch.where(choose, ti, t_main)
+            base = _nq(scene) + scene.triangles.count
+            pid = torch.where(choose, base + code, pid)
+            hit = hit | hi_
+        return t, pid, hit
 
 
 def occluded(scene: SceneData, o, d, mint, maxt):
-    """Any-hit shadow-ray predicate (Scene::IntersectP)."""
-    hit = _main_intersect(scene, o, d, mint, maxt, any_hit=True)[2]
-    if _has_instances(scene):
-        hit = hit | inst_mod.intersect(scene.instances, o, d, mint, maxt,
-                                       any_hit=True)[2]
-    return hit
+    """Any-hit shadow-ray predicate (Scene::IntersectP). The span
+    "shadow"."""
+    with span("shadow"):
+        hit = _main_intersect(scene, o, d, mint, maxt, any_hit=True)[2]
+        if _has_instances(scene):
+            hit = hit | inst_mod.intersect(scene.instances, o, d, mint, maxt,
+                                           any_hit=True)[2]
+        return hit
 
 
 def hit_geometry(scene: SceneData, prim_id, o, d, t):

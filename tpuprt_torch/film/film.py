@@ -9,6 +9,7 @@ from dataclasses import dataclass
 import torch
 
 from ..filters import filters as ftr
+from ..utils.stats import span
 
 
 @dataclass
@@ -117,3 +118,10 @@ def to_half(rgb, alpha):
     pixels of the reference's EXR output (core/exrio.cpp)."""
     return (torch.clamp(rgb, 0.0, 65504.0).to(torch.float16),
             alpha.to(torch.float16))
+
+
+def readback(x):
+    """x as a float32 numpy array on the host: a copy that waits for the
+    device, so a span "sync"."""
+    with span("sync"):
+        return x.to(torch.float32).cpu().numpy()

@@ -28,6 +28,7 @@ from ..samplers import samplers
 from ..scene.data import (AREA_GEOM_QUADRIC, AREA_GEOM_TRIS, LIGHT_AREA,
                           LIGHT_INFINITE, QUADRIC_SPHERE, SceneData)
 from ..textures import graph as _tex
+from ..utils.stats import span
 from ..volumes import regions as vr
 
 _EPS = vm.RAY_EPSILON
@@ -470,9 +471,12 @@ def scan_li(scene: SceneData, o, d, mint, maxt, rx, ry, ph, s_idx,
             if first:
                 alpha = torch.where(~hit & torch.any(Lesc > 0, -1), 1.0,
                                     alpha)
-        keep = torch.nonzero(hit).squeeze(1)
+        with span("sync"):
+            keep = torch.nonzero(hit).squeeze(1)
         if first:
-            alpha[keep] = 1.0
+            # index_fill_ takes 1.0 as a kernel argument, where an indexed
+            # write would copy it from the host and wait for the device.
+            alpha.index_fill_(0, keep, 1.0)
         idx, ro, rd, tp, t, pid = (x[keep] for x in (idx, ro, rd, tp, t,
                                                       pid))
         if diff is not None:
@@ -490,8 +494,9 @@ def scan_li(scene: SceneData, o, d, mint, maxt, rx, ry, ph, s_idx,
                                                    dg["nn"], wo))
         bsdf = make_bsdf_at(scene, dg)
         ph_l, s_l = ph[idx], s_idx[idx]
-        for term in shade(depth, idx, ph_l, s_l, dg, bsdf, wo, tp):
-            L.index_add_(0, idx, term)
+        with span("light"):
+            for term in shade(depth, idx, ph_l, s_l, dg, bsdf, wo, tp):
+                L.index_add_(0, idx, term)
         if depth >= max_depth or depth + 1 == n_depths:
             break
         u = [rng.uniform(ph_l, s_l, depth, 0x5A, k) for k in (1, 2, 3)]
@@ -505,7 +510,8 @@ def scan_li(scene: SceneData, o, d, mint, maxt, rx, ry, ph, s_idx,
             diff = specular_ray_differentials(
                 dg, bsdf.nn, wo, bs["wi"], diff[1], diff[3], bs["eta"],
                 (bs["flags"] & B.TRANSMISSION) > 0)
-        keep = torch.nonzero(cont).squeeze(1)
+        with span("sync"):
+            keep = torch.nonzero(cont).squeeze(1)
         idx, ro, rd, tp = idx[keep], dg["p"][keep], bs["wi"][keep], \
             (tp * scale)[keep]
         if diff is not None:

@@ -19,6 +19,7 @@ from ..core import rng, vecmath as vm
 from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import SceneData
+from ..utils.stats import span
 from ..volumes import regions as vr
 from . import common
 
@@ -62,9 +63,12 @@ def li(scene: SceneData, o, d, mint, maxt, cfg, px, py, s_idx,
             if first:
                 alpha = torch.where(take_le & torch.any(Lesc > 0, -1), 1.0,
                                     alpha)
-        keep = torch.nonzero(hit).squeeze(1)
+        with span("sync"):
+            keep = torch.nonzero(hit).squeeze(1)
         if first:
-            alpha[keep] = 1.0
+            # index_fill_ takes 1.0 as a kernel argument, where an indexed
+            # write would copy it from the host and wait for the device.
+            alpha.index_fill_(0, keep, 1.0)
         idx, ro, rd, tp, t, pid, specular = (
             x[keep] for x in (idx, ro, rd, tp, t, pid, specular))
         if idx.numel() == 0:
@@ -83,9 +87,10 @@ def li(scene: SceneData, o, d, mint, maxt, cfg, px, py, s_idx,
         bsdf = common.make_bsdf_at(scene, dg)
         p, ns = dg["p"], bsdf.nn
         if has_lights:
-            L.index_add_(0, idx, tp * common.direct_ld(
-                scene, cfg, "one", None, p, ns, wo, bsdf, ph_l, px_l, py_l,
-                s_l, bounce, seed, live))
+            with span("light"):
+                L.index_add_(0, idx, tp * common.direct_ld(
+                    scene, cfg, "one", None, p, ns, wo, bsdf, ph_l, px_l,
+                    py_l, s_l, bounce, seed, live))
         if bounce >= max_depth:
             break
         c1, c2 = smp.integrator_2d(cfg, px_l, py_l, s_l, bounce, 20, seed)
@@ -99,7 +104,8 @@ def li(scene: SceneData, o, d, mint, maxt, cfg, px, py, s_idx,
         if bounce >= RR_START:
             cont = cont & (rng.uniform(ph_l, s_l, bounce, 30) < 0.5)
             tp = tp / 0.5
-        keep = torch.nonzero(cont).squeeze(1)
+        with span("sync"):
+            keep = torch.nonzero(cont).squeeze(1)
         idx, ro, rd, tp = idx[keep], p[keep], bs["wi"][keep], tp[keep]
         specular = bs["specular"][keep]
         if idx.numel() == 0:

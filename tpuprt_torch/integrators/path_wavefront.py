@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..accel import intersect as isect
@@ -47,6 +46,7 @@ from ..lights import lights as lt
 from ..samplers import samplers as smp
 from ..scene.data import LIGHT_AREA, SceneData
 from ..utils.progress import ProgressReporter
+from ..utils.stats import span
 from ..volumes import regions as vr
 from . import common, photonmap, volume
 
@@ -88,11 +88,13 @@ def _volumes(scene: SceneData, st, t, hit, alive, first, ph, seed, path,
     u_cam = rng.uniform(ph_cam, st["s_idx"], 0x7A)
     u = torch.where(first, u_cam, rng.uniform(
         ph, st["s_idx"], st["bounce"], 0x77)) if path else u_cam
-    k = torch.nonzero(alive if path else first & alive).squeeze(1)
+    with span("sync"):
+        k = torch.nonzero(alive if path else first & alive).squeeze(1)
     tp = st["throughput"].clone()
     tp[k] = tp[k] * vr.transmittance(scene.volumes, st["o"][k], st["d"][k],
                                      st["mint"][k], seg_end[k], u[k])
-    k = torch.nonzero(first & alive).squeeze(1)
+    with span("sync"):
+        k = torch.nonzero(first & alive).squeeze(1)
     seg = (st["o"][k], st["d"][k], st["mint"][k], seg_end[k])
     Lv = volume.li_single(scene, *seg, ph_cam[k], st["s_idx"][k], seed) \
         if vol_integrator == "single" else \
@@ -162,18 +164,22 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     p, ns = dg["p"], bsdf.nn
     wo = -rd
     if scene.lights.count > 0:
-        if mode == "whitted":
-            Ld = common.whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx, bounce,
-                                   alive)
-        elif mode == "photonmap":
-            Ld = photonmap.photon_radiance(scene, maps, prm, bsdf, wo, p, ns,
-                                           alive, ph, s_idx, bounce)
-        else:
-            # Path mode samples one light uniformly (path.cpp:99-110).
-            Ld = common.direct_ld(scene, cfg, "one" if path else strategy,
-                                  sel, p, ns, wo, bsdf, ph, px, py, s_idx,
-                                  bounce, seed, alive)
-        L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
+        with span("light"):
+            if mode == "whitted":
+                Ld = common.whitted_ld(scene, p, ns, wo, bsdf, ph, s_idx,
+                                       bounce, alive)
+            elif mode == "photonmap":
+                Ld = photonmap.photon_radiance(scene, maps, prm, bsdf, wo,
+                                               p, ns, alive, ph, s_idx,
+                                               bounce)
+            else:
+                # Path mode samples one light uniformly (path.cpp:
+                # 99-110).
+                Ld = common.direct_ld(scene, cfg,
+                                      "one" if path else strategy, sel, p,
+                                      ns, wo, bsdf, ph, px, py, s_idx,
+                                      bounce, seed, alive)
+            L = L + torch.where(alive[..., None], throughput * Ld, 0.0)
 
     if path:
         # The full BSDF continuation (path_wavefront.py:319-322).
@@ -215,46 +221,47 @@ def _step(scene: SceneData, film, st, cursor, cfg, seed, max_depth, total,
     ro, rd = p, bs["wi"]
     bounce = bounce + 1
 
-    # --- finish & splat -------------------------------------------------
-    finished = st["alive"] & ~alive
-    bad = torch.any(~torch.isfinite(L) | (L < 0.0), dim=-1)
-    Ls = torch.where((finished & ~bad)[..., None], L, 0.0)
-    film_mod.add_samples(film, torch.where(finished, st["ix"], -1e6),
-                         torch.where(finished, st["iy"], -1e6), Ls,
-                         torch.where(finished, alpha, 0.0),
-                         filter_kind, filter_xwidth, filter_ywidth)
+    with span("film"):           # finish and splat
+        finished = st["alive"] & ~alive
+        bad = torch.any(~torch.isfinite(L) | (L < 0.0), dim=-1)
+        Ls = torch.where((finished & ~bad)[..., None], L, 0.0)
+        film_mod.add_samples(film, torch.where(finished, st["ix"], -1e6),
+                             torch.where(finished, st["iy"], -1e6), Ls,
+                             torch.where(finished, alpha, 0.0),
+                             filter_kind, filter_xwidth, filter_ywidth)
 
-    # --- regenerate ------------------------------------------------------
-    dead = ~alive
-    slot = torch.cumsum(dead.to(torch.int64), 0) - dead.to(torch.int64)
-    new_lin = cursor + slot
-    regen = dead & (new_lin < total)
-    fresh = _regen(scene, cfg, torch.where(regen, new_lin, 0), seed, xres,
-                   yres, xstart, xcount, ystart, spp)
+    with span("camera"):         # regenerate
+        dead = ~alive
+        slot = torch.cumsum(dead.to(torch.int64), 0) - dead.to(torch.int64)
+        new_lin = cursor + slot
+        regen = dead & (new_lin < total)
+        fresh = _regen(scene, cfg, torch.where(regen, new_lin, 0), seed,
+                       xres, yres, xstart, xcount, ystart, spp)
 
-    def sel(new, old):
-        m = regen
-        while m.dim() < new.dim():
-            m = m[..., None]
-        return torch.where(m, new, old)
+        def sel(new, old):
+            m = regen
+            while m.dim() < new.dim():
+                m = m[..., None]
+            return torch.where(m, new, old)
 
-    st_out = dict(
-        alive=alive | regen,
-        px=sel(fresh["px"], px), py=sel(fresh["py"], py),
-        s_idx=sel(fresh["s_idx"], s_idx),
-        bounce=torch.where(regen, 0, bounce),
-        ix=sel(fresh["ix"], st["ix"]), iy=sel(fresh["iy"], st["iy"]),
-        o=sel(fresh["o"], ro), d=sel(fresh["d"], rd),
-        mint=sel(fresh["mint"], torch.full_like(st["mint"], _EPS)),
-        maxt=sel(fresh["maxt"], torch.full_like(st["maxt"], 1e30)),
-        rx_o=sel(fresh["rx_o"], rx_o), rx_d=sel(fresh["rx_d"], rx_d),
-        ry_o=sel(fresh["ry_o"], ry_o), ry_d=sel(fresh["ry_d"], ry_d),
-        throughput=sel(torch.ones_like(throughput), throughput),
-        L=sel(torch.zeros_like(L), L),
-        alpha=torch.where(regen, 0.0, alpha),
-        specular=torch.where(regen, False, specular),
-    )
-    return st_out, cursor + regen.sum(), n_active, n_shadow
+        st_out = dict(
+            alive=alive | regen,
+            px=sel(fresh["px"], px), py=sel(fresh["py"], py),
+            s_idx=sel(fresh["s_idx"], s_idx),
+            bounce=torch.where(regen, 0, bounce),
+            ix=sel(fresh["ix"], st["ix"]), iy=sel(fresh["iy"], st["iy"]),
+            o=sel(fresh["o"], ro), d=sel(fresh["d"], rd),
+            mint=sel(fresh["mint"], torch.full_like(st["mint"], _EPS)),
+            maxt=sel(fresh["maxt"], torch.full_like(st["maxt"], 1e30)),
+            rx_o=sel(fresh["rx_o"], rx_o), rx_d=sel(fresh["rx_d"], rx_d),
+            ry_o=sel(fresh["ry_o"], ry_o), ry_d=sel(fresh["ry_d"], ry_d),
+            throughput=sel(torch.ones_like(throughput), throughput),
+            L=sel(torch.zeros_like(L), L),
+            alpha=torch.where(regen, 0.0, alpha),
+            specular=torch.where(regen, False, specular),
+        )
+        cursor = cursor + regen.sum()
+    return st_out, cursor, n_active, n_shadow
 
 
 def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
@@ -307,8 +314,11 @@ def render(scene: SceneData, opts, device, maps=None, progress=False,
     kw = dict(cfg=opts.sampler, seed=opts.seed, total=total, xres=opts.xres,
               yres=opts.yres, xstart=xstart, xcount=xcount, ystart=ystart,
               spp=spp)
-    st = _init(scene, n_lanes=n_lanes, device=device, **kw)
-    cursor = torch.tensor(n_lanes, dtype=torch.int64, device=device)
+    with span("camera"):
+        st = _init(scene, n_lanes=n_lanes, device=device, **kw)
+        # Filled on the device: a tensor copied from the host would wait
+        # for the device.
+        cursor = torch.full((), n_lanes, dtype=torch.int64, device=device)
     # Loose bound against bugs: every sample ends within max_depth + 1
     # passes of its regeneration.
     pass_limit = math.ceil(total * (opts.max_depth + 2) / n_lanes) + \
@@ -317,35 +327,42 @@ def render(scene: SceneData, opts, device, maps=None, progress=False,
     segments = shadow = 0
     passes = done = 0
     for _ in range(pass_limit):
-        st, cursor, n_active, n_shadow = _step(scene, film, st, cursor,
-                           max_depth=opts.max_depth,
-                           filter_kind=opts.filter_kind,
-                           filter_xwidth=opts.filter_xwidth,
-                           filter_ywidth=opts.filter_ywidth,
-                           mode=opts.integrator, strategy=strategy, sel=sel,
-                           maps=maps, prm=prm,
-                           vol_integrator=opts.volume_integrator, **kw)
+        # The pass's film, camera and light spans nest inside "shade".
+        with span("shade"):
+            st, cursor, n_active, n_shadow = _step(
+                scene, film, st, cursor, max_depth=opts.max_depth,
+                filter_kind=opts.filter_kind,
+                filter_xwidth=opts.filter_xwidth,
+                filter_ywidth=opts.filter_ywidth, mode=opts.integrator,
+                strategy=strategy, sel=sel, maps=maps, prm=prm,
+                vol_integrator=opts.volume_integrator, **kw)
         passes += 1
         if stats is not None:
             segments, shadow = segments + n_active, shadow + n_shadow
         if rep is not None:
-            started = int(cursor)
+            with span("sync"):
+                started = int(cursor)
             rep.update(started - done)
             done = started
-        if not bool(st["alive"].any()):
+        with span("sync"):
+            live = bool(st["alive"].any())
+        if not live:
             break
     if rep is not None:
         rep.done()
     if stats is not None:
-        segments, shadow = float(segments), float(shadow)
+        with span("sync"):
+            segments = float(segments)
+        with span("sync"):
+            shadow = float(shadow)
         stats.add("Wavefront", "Passes", passes)
         stats.add("Wavefront", "Path segments traced", segments)
         stats.add("Wavefront", "Shadow rays traced", shadow)
         stats.add_ratio("Wavefront", "Lane occupancy", segments,
                         float(passes) * n_lanes)
         stats.add("Camera", "Samples taken", total)
-    rgb, alpha = film_mod.develop(film)
-    if opts.half_readback:
-        rgb, alpha = film_mod.to_half(rgb, alpha)
-    return (rgb.to(torch.float32).cpu().numpy(),
-            alpha.to(torch.float32).cpu().numpy().astype(np.float32))
+    with span("film"):
+        rgb, alpha = film_mod.develop(film)
+        if opts.half_readback:
+            rgb, alpha = film_mod.to_half(rgb, alpha)
+    return film_mod.readback(rgb), film_mod.readback(alpha)

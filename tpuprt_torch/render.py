@@ -54,6 +54,7 @@ from .ops import bvh_cuda, mt_cuda
 from .samplers import samplers as smp
 from .scene.data import BvhAccel, SceneData, to_device
 from .utils.progress import ProgressReporter
+from .utils.stats import active, span
 from .volumes import regions as vr
 
 # The integrators "auto" sends to the wavefront pool.
@@ -113,22 +114,25 @@ def render(scene: SceneData, opts: RenderOptions, device="cuda",
     checkpoint_path, resume: the chunked driver saves the film and its
     next chunk there with each partial image (writefrequency), and with
     resume starts from the checkpoint found there (tpuprt/render.py:
-    287-318)."""
+    287-318). The call is the span "frame", with `stats` the active
+    registry of its stage spans (utils/stats.py)."""
     require_device("render()", device)
     if opts.driver not in DRIVERS:
         raise ValueError(f"unknown driver {opts.driver!r}; one of {DRIVERS}")
-    scene = on_device(scene, device)
-    pool_ok = opts.integrator in POOL and checkpoint_path is None and \
-        not resume and not opts.writefrequency > 0 and not (
-            opts.integrator == "photonmap" and vr.present(scene.volumes))
-    if opts.driver == "wavefront" or (opts.driver == "auto" and pool_ok):
-        kw = {} if maps is None else {"maps": to_device(maps, device)}
-        return path_wavefront.render(scene, opts, device, progress=progress,
-                                     stats=stats, **kw)
-    return render_chunked(scene, opts, device,
-                          aux=maps if aux is None else aux, stats=stats,
-                          checkpoint_path=checkpoint_path, resume=resume,
-                          progress=progress)
+    with active(stats), span("frame"):
+        scene = on_device(scene, device)
+        pool_ok = opts.integrator in POOL and checkpoint_path is None and \
+            not resume and not opts.writefrequency > 0 and not (
+                opts.integrator == "photonmap" and vr.present(scene.volumes))
+        if opts.driver == "wavefront" or (opts.driver == "auto" and pool_ok):
+            kw = {} if maps is None else {"maps": to_device(maps, device)}
+            return path_wavefront.render(scene, opts, device,
+                                         progress=progress, stats=stats,
+                                         **kw)
+        return render_chunked(scene, opts, device,
+                              aux=maps if aux is None else aux, stats=stats,
+                              checkpoint_path=checkpoint_path, resume=resume,
+                              progress=progress)
 
 
 def compose_volumes(scene: SceneData, opts: RenderOptions, L, o, d, mint,
@@ -203,31 +207,34 @@ def li(scene: SceneData, opts: RenderOptions, aux, o, d, mint, maxt, px,
     """_li_dispatch (tpuprt/render.py:66-112): the scan form of
     `opts.integrator`'s Li on camera rays (o, d, mint, maxt) with ids (px,
     py, s_idx), its preprocess state `aux` and the +x/+y differential rays
-    rx, ry (or None). Returns (L, alpha, t_first)."""
-    integ, cfg = opts.integrator, opts.sampler
-    if integ == "debug":
-        return debug.li(scene, o, d, mint, maxt, opts.debug_channels)
-    if integ == "directlighting":
-        return directlighting.li(scene, o, d, mint, maxt, cfg, px, py, s_idx,
-                                 opts.max_depth, opts.seed,
-                                 opts.direct_strategy, rx=rx, ry=ry)
-    if integ in ("whitted", "path", "bidirectional"):
-        module = {"whitted": whitted, "path": path,
-                  "bidirectional": bidirectional}[integ]
-        return module.li(scene, o, d, mint, maxt, cfg, px, py, s_idx,
-                         opts.max_depth, opts.seed, rx=rx, ry=ry)
-    if integ not in ("photonmap", "igi", "irradiancecache", "exphotonmap"):
-        raise ValueError(f"unknown integrator {integ}")
-    module, prm = {
-        "photonmap": (photonmap, opts.photon or photonmap.PhotonParams()),
-        "igi": (igi, opts.igi or igi.IgiParams()),
-        "irradiancecache": (irradiancecache,
-                            opts.irrad or irradiancecache.IrradParams()),
-        "exphotonmap": (exphotonmap,
-                        opts.photon or exphotonmap.ExPhotonParams()),
-    }[integ]
-    return module.li(scene, aux, o, d, mint, maxt, cfg, px, py, s_idx,
-                     opts.max_depth, opts.seed, prm, rx=rx, ry=ry)
+    rx, ry (or None). Returns (L, alpha, t_first). The span "shade"."""
+    with span("shade"):
+        integ, cfg = opts.integrator, opts.sampler
+        if integ == "debug":
+            return debug.li(scene, o, d, mint, maxt, opts.debug_channels)
+        if integ == "directlighting":
+            return directlighting.li(scene, o, d, mint, maxt, cfg, px, py,
+                                     s_idx, opts.max_depth, opts.seed,
+                                     opts.direct_strategy, rx=rx, ry=ry)
+        if integ in ("whitted", "path", "bidirectional"):
+            module = {"whitted": whitted, "path": path,
+                      "bidirectional": bidirectional}[integ]
+            return module.li(scene, o, d, mint, maxt, cfg, px, py, s_idx,
+                             opts.max_depth, opts.seed, rx=rx, ry=ry)
+        if integ not in ("photonmap", "igi", "irradiancecache",
+                         "exphotonmap"):
+            raise ValueError(f"unknown integrator {integ}")
+        module, prm = {
+            "photonmap": (photonmap,
+                          opts.photon or photonmap.PhotonParams()),
+            "igi": (igi, opts.igi or igi.IgiParams()),
+            "irradiancecache": (irradiancecache,
+                                opts.irrad or irradiancecache.IrradParams()),
+            "exphotonmap": (exphotonmap,
+                            opts.photon or exphotonmap.ExPhotonParams()),
+        }[integ]
+        return module.li(scene, aux, o, d, mint, maxt, cfg, px, py, s_idx,
+                         opts.max_depth, opts.seed, prm, rx=rx, ry=ry)
 
 
 def render_chunk(scene: SceneData, opts: RenderOptions, film, px, py, s_idx,
@@ -236,21 +243,27 @@ def render_chunk(scene: SceneData, opts: RenderOptions, film, px, py, s_idx,
     differential rays, Li, the volumes' composition (compose_volumes), the
     radiance guards (a NaN, negative or infinite sample is black,
     core/scene.cpp:60-74), the splat."""
-    cs = smp.camera_samples(opts.sampler, px, py, s_idx, opts.seed)
-    ix, iy = cs["image_x"], cs["image_y"]
-    # The +1-pixel differential rays keep the lens and time samples
-    # (tpuprt/render.py:119-129).
-    lens = (cs["lens_u"], cs["lens_v"], cs["time"], opts.xres, opts.yres)
-    o, d, mint, maxt, _ = cam_mod.generate_rays(scene.camera, ix, iy, *lens)
-    rx = cam_mod.generate_rays(scene.camera, ix + 1.0, iy, *lens)[:2]
-    ry = cam_mod.generate_rays(scene.camera, ix, iy + 1.0, *lens)[:2]
+    with span("camera"):
+        cs = smp.camera_samples(opts.sampler, px, py, s_idx, opts.seed)
+        ix, iy = cs["image_x"], cs["image_y"]
+        # The +1-pixel differential rays keep the lens and time samples
+        # (tpuprt/render.py:119-129).
+        lens = (cs["lens_u"], cs["lens_v"], cs["time"], opts.xres,
+                opts.yres)
+        o, d, mint, maxt, _ = cam_mod.generate_rays(scene.camera, ix, iy,
+                                                    *lens)
+        rx = cam_mod.generate_rays(scene.camera, ix + 1.0, iy, *lens)[:2]
+        ry = cam_mod.generate_rays(scene.camera, ix, iy + 1.0, *lens)[:2]
     L, alpha, t_first = li(scene, opts, aux, o, d, mint, maxt, px, py,
                            s_idx, rx, ry)
-    L = compose_volumes(scene, opts, L, o, d, mint, t_first, px, py, s_idx)
-    bad = torch.any(~torch.isfinite(L) | (L < 0.0), dim=-1)
-    L = torch.where(bad[..., None], 0.0, L)
-    film_mod.add_samples(film, ix, iy, L, alpha, opts.filter_kind,
-                         opts.filter_xwidth, opts.filter_ywidth)
+    with span("shade"):
+        L = compose_volumes(scene, opts, L, o, d, mint, t_first, px, py,
+                            s_idx)
+    with span("film"):
+        bad = torch.any(~torch.isfinite(L) | (L < 0.0), dim=-1)
+        L = torch.where(bad[..., None], 0.0, L)
+        film_mod.add_samples(film, ix, iy, L, alpha, opts.filter_kind,
+                             opts.filter_xwidth, opts.filter_ywidth)
 
 
 def chunk_lanes(device, total: int) -> int:
@@ -273,7 +286,7 @@ def save_checkpoint(path: str, film, next_chunk: int,
     """The film's planes and the next chunk's index (tpuprt/render.py:
     183-196), an .npz at `path`: deterministic streams make a resume from
     that chunk redo exactly the work left."""
-    data = film.data.detach().cpu().numpy()
+    data = film_mod.readback(film.data.detach())
     np.savez(path, pixels=data[..., 0:3], alpha=data[..., 3],
              weight_sum=data[..., 4], next_chunk=np.int64(next_chunk),
              fingerprint=np.array(
@@ -322,7 +335,8 @@ def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
         aux = to_device(aux, device)
     if stats is not None:
         if cuda:
-            torch.cuda.synchronize(device)
+            with span("sync"):
+                torch.cuda.synchronize(device)
         stats.add("Performance", "Preprocess seconds",
                   time.perf_counter() - t0)
         for k, v in pre.items():
@@ -349,29 +363,33 @@ def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
     rep = ProgressReporter(n_chunks - start, "Rendering") if progress \
         else None
     for c in range(start, n_chunks):
-        lin = torch.arange(c * chunk, min((c + 1) * chunk, total),
-                           device=device)
-        pix = lin // spp
-        render_chunk(scene, opts, film,
-                     (xstart + pix % xcount).to(torch.int32),
-                     (ystart + pix // xcount).to(torch.int32),
-                     (lin % spp).to(torch.int32), aux)
+        with span("camera"):
+            lin = torch.arange(c * chunk, min((c + 1) * chunk, total),
+                               device=device)
+            pix = lin // spp
+            px = (xstart + pix % xcount).to(torch.int32)
+            py = (ystart + pix // xcount).to(torch.int32)
+            s_idx = (lin % spp).to(torch.int32)
+        render_chunk(scene, opts, film, px, py, s_idx, aux)
         if write_every and (c + 1) % write_every == 0 and c + 1 < n_chunks:
-            rgb_p, alpha_p = film_mod.develop(film)
-            exr.write_exr(opts.filename, rgb_p.cpu().numpy(),
-                          alpha_p.cpu().numpy())
+            with span("film"):
+                rgb_p, alpha_p = film_mod.develop(film)
+            exr.write_exr(opts.filename, film_mod.readback(rgb_p),
+                          film_mod.readback(alpha_p))
             if checkpoint_path is not None:
                 save_checkpoint(checkpoint_path, film, c + 1, opts)
         if rep is not None:
             if cuda:
-                torch.cuda.synchronize(device)
+                with span("sync"):
+                    torch.cuda.synchronize(device)
             rep.update()
     if rep is not None:
         rep.done()
-    rgb, alpha = film_mod.develop(film)
-    if opts.half_readback:
-        rgb, alpha = film_mod.to_half(rgb, alpha)
-    rgb = rgb.to(torch.float32).cpu().numpy()
+    with span("film"):
+        rgb, alpha = film_mod.develop(film)
+        if opts.half_readback:
+            rgb, alpha = film_mod.to_half(rgb, alpha)
+    rgb = film_mod.readback(rgb)
     if stats is not None:
         wall = time.perf_counter() - t0
         samples = total - min(start * chunk, total)
@@ -383,4 +401,4 @@ def render_chunked(scene: SceneData, opts: RenderOptions, device, aux=None,
         stats.add("Performance", "Wall-clock seconds", round(wall, 3))
         stats.add("Performance", "Samples per second",
                   int(samples / max(wall, 1e-9)))
-    return rgb, alpha.to(torch.float32).cpu().numpy().astype(np.float32)
+    return rgb, film_mod.readback(alpha)

@@ -1,15 +1,31 @@
 """Stats registry: (category, name) counters printed as a table (a copy of
-tpuprt/utils/stats.py).
+tpuprt/utils/stats.py), and the renderer's stage spans.
 
 The reference's statistics (core/pbrt.h:291-321, core/util.cpp:186-285):
 counters and ratios merged by (category, name) and printed after the
 render with its K/M/B suffixes (core/util.cpp:228-262). The render drivers
 add their counts here once a render, after its last pass or chunk.
+
+Spans: `span(name)` marks a stage of the renderer (camera, intersect,
+shadow, shade, light, film) and `span("sync")` each place where the host
+waits for the device. While `active(stats)` holds a registry (render()
+holds the one it is given), each span's self time, its duration less that
+of the spans opened inside it, is summed on the host clock; when the block
+ends the registry receives, under category "Spans", "<name> ms" and
+"<name> calls" of each span ("syncs" for the sync span), so the stages
+partition the whole render ("frame"). While a torch profiler runs, each
+span is also a `record_function` range "tpuprt/<name>" on the profiler's
+clock. With neither, a span is one shared null context.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import sys
+import time
 from collections import OrderedDict
+
+import torch
 
 
 def _suffixed(v: float) -> str:
@@ -76,3 +92,80 @@ class StatsRegistry:
 
     def print(self, file=None):
         print(self.format_table(), file=file or sys.stdout)
+
+
+# The timing of the registry active in this context, or None.
+_ACTIVE = contextvars.ContextVar("tpuprt_torch_stats_active", default=None)
+_NULL = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _Timing:
+    """The spans' sums (name -> [self ns, calls]) for one active registry,
+    and the stack of its open spans."""
+    __slots__ = ("stats", "sums", "open")
+
+    def __init__(self, stats: StatsRegistry):
+        self.stats, self.sums, self.open = stats, {}, []
+
+    def flush(self):
+        for name, (ns, calls) in self.sums.items():
+            self.stats.add("Spans", f"{name} ms", ns * 1e-6)
+            self.stats.add("Spans", "syncs" if name == "sync" else
+                           f"{name} calls", calls)
+
+
+@contextlib.contextmanager
+def active(stats: StatsRegistry | None):
+    """Make `stats` the registry that spans feed for the block (None: no
+    registry); its "Spans" counters are added when the block ends."""
+    timing = None if stats is None else _Timing(stats)
+    token = _ACTIVE.set(timing)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+        if timing is not None:
+            timing.flush()
+
+
+class _Span:
+    __slots__ = ("name", "timing", "range", "t0", "child")
+
+    def __init__(self, name, timing, profiling):
+        self.name, self.timing, self.child = name, timing, 0
+        self.range = torch.profiler.record_function(f"tpuprt/{name}") \
+            if profiling else None
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        if self.timing is not None:
+            self.timing.open.append(self)
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        timing = self.timing
+        if timing is not None:
+            dt = time.perf_counter_ns() - self.t0
+            timing.open.pop()
+            if timing.open:
+                timing.open[-1].child += dt
+            acc = timing.sums.setdefault(self.name, [0, 0])
+            acc[0] += dt - self.child
+            acc[1] += 1
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A stage span (the module's docstring): times `name` into the active
+    registry and/or opens a profiler range; a shared null context when
+    there is neither."""
+    timing = _ACTIVE.get()
+    profiling = _profiling()
+    if timing is None and not profiling:
+        return _NULL
+    return _Span(name, timing, profiling)
