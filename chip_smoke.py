@@ -250,6 +250,20 @@ Phases, one JSON line each; any failure raises and exits nonzero:
    JAX on the machine); walls beside phase 4's. Then the imaging
    pipeline (maxwhite, gamma 2.2, bloom 0.2) on that image on the card
    and on the CPU, their largest difference.
+39. graph -- the pool's replayed passes (graph_phase): bench3 and
+   config4_big (path, directlighting) at full size, config1 (whitted) at
+   256x256 and bench3/textures (textures_text: marble, dots mapped
+   spherically and cylindrically) at 128x128, with the pool's 2^16 lanes,
+   frames with every pass issued from the host (eager_passes) and with the
+   passes after the first replayed from a CUDA graph, in the turns eager,
+   graph, graph, eager: the images within GRAPH_TOL (the splat's
+   atomic adds order a pixel's sums), the launches, the host syncs and the
+   "Wavefront" counters equal, each frame's wall and peak device memory.
+   Then the sync census of each pool mode (bench3 path, config4_big
+   directlighting, config1 whitted, config6 photonmap), one eager frame
+   under torch.cuda.set_sync_debug_mode("warn"): the syncs warned inside a
+   pass (path_wavefront._step) and in all; a mode with one inside a pass
+   must not be in path_wavefront.GRAPH_MODES.
 
 Each parity line carries the kernel's and the plain version's times, the
 wrapper's host time per call (host_ms), and the kernel's bound (the least time the card could take: the bytes it must
@@ -425,6 +439,7 @@ MESH3_BAND_REL, MESH3_BAND_MEAN = 2 * 0.012414, 2 * 0.002823
 # Scan against pool, per pixel: tests/test_wavefront.py's tolerance.
 SCAN_TOL, SCAN_ALPHA_TOL = 2e-4, 1e-5
 RESUME_TOL = 1e-5          # a resumed render against the straight one
+GRAPH_TOL = 1e-5           # replayed passes against eager ones (phase 39)
 ROUTE_RTOL = 1e-4          # gradients, kernel route against plain route
 # Autograd against a central difference: tests/test_grad.py:66, 88 (2%,
 # direct lighting) and :296 (5%, path); the steps.
@@ -1412,9 +1427,17 @@ def capture_rays(scene, opts, device, module, name, at, period=None,
         elif live > got.get(any_hit, (-1, None))[0]:
             got[any_hit] = (live, rays.clone())
         return real(*a, **kw)
-    with patched(module, name, spy) as real:
+    # The spy reads every call's rays, which a replayed pass never makes.
+    with patched(module, name, spy) as real, eager_passes():
         R.render(scene, opts, device=device, maps=maps, aux=aux)
     return {k: v[1] for k, v in got.items()}
+
+
+def eager_passes():
+    """A context in which the pool issues every pass from the host
+    (path_wavefront.graphed patched to False)."""
+    from tpuprt_torch.integrators import path_wavefront as pw
+    return patched(pw, "graphed", lambda *a: False)
 
 
 def config2_none_text():
@@ -1548,15 +1571,12 @@ def render_path(label, scene, opts, device, need, exr=None, alpha=None):
     import numpy as np
     from tpuprt_torch import render as R
     from tpuprt_torch.io.exr import read_exr, write_exr
-    from tpuprt_torch.ops import bvh_cuda, mt_cuda
-    counters = (bvh_cuda.launches, mt_cuda.launches)
-    for c in counters:
-        for k in c:
-            c[k] = 0
+    from tpuprt_torch import ops
+    ops.reset_launches()
     t0 = time.perf_counter()
     rgb, a = R.render(scene, opts, device=device)
     first_s = time.perf_counter() - t0
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = ops.launch_counts()
     if alpha is not None:
         alpha.append(a)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1791,7 +1811,7 @@ def photon_render(label, path, device, reps=2, ref_exr=None):
     import torch
     from tpuprt_torch import render as R
     from tpuprt_torch.io.exr import read_exr, write_exr
-    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch import ops
     from tpuprt_torch.scene.parser import load_scene
 
     def run():
@@ -1800,15 +1820,12 @@ def photon_render(label, path, device, reps=2, ref_exr=None):
         opts = opts._replace(half_readback=True)
         rgb, alpha = R.render(scene, opts, device=device)
         return rgb, alpha, opts, time.perf_counter() - t0
-    counters = (bvh_cuda.launches, mt_cuda.launches)
-    for c in counters:
-        for k in c:
-            c[k] = 0
+    ops.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rgb, alpha, opts, first_s = run()
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = ops.launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, opts.filename)
         write_exr(out, rgb, alpha)
@@ -1868,7 +1885,7 @@ def gi_render(label, text, device, reps, golden=None, limits=None):
     import torch
     from tpuprt_torch import render as R
     from tpuprt_torch.io.exr import read_exr, write_exr
-    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch import ops
     from tpuprt_torch.scene.parser import load_scene_string
     from tpuprt_torch.utils.stats import StatsRegistry
 
@@ -1879,16 +1896,13 @@ def gi_render(label, text, device, reps, golden=None, limits=None):
         opts = opts._replace(half_readback=True)
         rgb, alpha = R.render(scene, opts, device=device, stats=stats)
         return rgb, alpha, opts, time.perf_counter() - t0
-    counters = (bvh_cuda.launches, mt_cuda.launches)
-    for c in counters:
-        for k in c:
-            c[k] = 0
+    ops.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = StatsRegistry()
     rgb, alpha, opts, first_s = run(stats)
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = ops.launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, opts.filename)
         write_exr(out, rgb, alpha)
@@ -2379,11 +2393,9 @@ def counted(device, fn):
     host wall (synchronized on the card) and the peak device memory:
     (result, launches, wall_s, peak_bytes or None)."""
     import torch
-    from tpuprt_torch.ops import bvh_cuda, mt_cuda
+    from tpuprt_torch import ops
     cuda = torch.device(device).type == "cuda"
-    for c in (bvh_cuda.launches, mt_cuda.launches):
-        for k in c:
-            c[k] = 0
+    ops.reset_launches()
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2392,7 +2404,7 @@ def counted(device, fn):
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**bvh_cuda.launches, **mt_cuda.launches}
+    counts = ops.launch_counts()
     return out, counts, wall, (torch.cuda.max_memory_allocated()
                                if cuda else None)
 
@@ -2497,6 +2509,150 @@ def scan_phase(device, launches, res4=None, res3=None, spp3=None):
     launches["bench3/scan"] = scan[2]["launches"]
     emit(phase="scan", scan=scan[2], pool=pool[2], tol=SCAN_TOL,
          alpha_tol=SCAN_ALPHA_TOL, **diff)
+
+
+# Phase 39's textured box: bench3's back and side walls in textures whose
+# constants the card keeps once per device (textures/graph.py _const).
+TEXTURES_3 = (
+    ('Material "matte" "color Kd" [0.73 0.73 0.73]',
+     'Texture "marb" "color" "marble" "float scale" [2.5]\n'
+     'Material "matte" "texture Kd" "marb"'),
+    ('Material "matte" "color Kd" [0.65 0.05 0.05]',
+     'Texture "dot" "color" "dots" "string mapping" "spherical" '
+     '"color inside" [0.65 0.05 0.05] "color outside" [0.7 0.7 0.7]\n'
+     '  Material "matte" "texture Kd" "dot"'),
+    ('Material "matte" "color Kd" [0.12 0.45 0.15]',
+     'Texture "cyl" "color" "dots" "string mapping" "cylindrical" '
+     '"color inside" [0.12 0.45 0.15] "color outside" [0.7 0.7 0.7]\n'
+     '  Material "matte" "texture Kd" "cyl"'),
+)
+
+
+def textures_text(text, res=None, spp=None):
+    """bench3 with its walls in TEXTURES_3's textures."""
+    for old, new in TEXTURES_3:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    return film_text(text, res, spp)
+
+
+def graph_frame(scene, opts, device, eager):
+    """One frame through render() with a registry, every pass issued from
+    the host (eager) or the passes after the first replayed: (rgb, alpha,
+    line) with the frame's wall, peak device memory, launches, host syncs
+    and "Wavefront" counters."""
+    from tpuprt_torch import render as R
+    from tpuprt_torch.utils.stats import StatsRegistry
+    stats = StatsRegistry()
+    with eager_passes() if eager else contextlib.nullcontext():
+        (rgb, alpha), counts, wall, peak = counted(
+            device, lambda: R.render(scene, opts, device=device,
+                                     stats=stats))
+    return rgb, alpha, dict(
+        eager=eager, wall_s=wall, peak_bytes=peak, launches=counts,
+        syncs=stats.get("Spans", "syncs"),
+        wavefront={n: v for (c, n), v in stats.items() if c == "Wavefront"})
+
+
+def sync_census(label, scene, opts, device):
+    """Phase 39's census: one eager frame under
+    torch.cuda.set_sync_debug_mode("warn"), the syncs warned inside a pass
+    (path_wavefront._step) and in all, and the port's innermost line of
+    each warned inside a pass. Emits and returns the line."""
+    import traceback
+    import warnings
+    import torch
+    from tpuprt_torch import render as R
+    from tpuprt_torch.integrators import path_wavefront as pw
+    warned, inside, depth, sites = [0], [0], [0], set()
+
+    def show(message, *a, **kw):
+        if "synchroniz" not in str(message):
+            return
+        warned[0] += 1
+        if depth[0]:
+            inside[0] += 1
+            sites.add(next((f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
+                            for f in reversed(traceback.extract_stack())
+                            if "tpuprt_torch" in f.filename), "?"))
+
+    def step(*a, **kw):
+        depth[0] += 1
+        try:
+            return real(*a, **kw)
+        finally:
+            depth[0] -= 1
+    cuda = torch.device(device).type == "cuda"
+    with warnings.catch_warnings(), eager_passes(), \
+            patched(pw, "_step", step) as real:
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            R.render(scene, opts, device=device)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+    line = dict(phase="graph", check="sync_census", scene=label,
+                mode=opts.integrator, syncs=warned[0], in_pass=inside[0],
+                sites=sorted(sites),
+                graphed=opts.integrator in pw.GRAPH_MODES)
+    emit(**line)
+    if line["graphed"] and inside[0]:
+        raise AssertionError(f"{label}: {inside[0]} syncs inside a pass of "
+                             f"a mode in GRAPH_MODES: {line['sites']}")
+    return line
+
+
+def graph_phase(device, res3=None, res4=None, spp3=None, census_res=None):
+    """Phase 39 (the module's docstring): replayed passes against eager
+    ones, then the sync census. res3, res4, spp3 and census_res shrink the
+    films for a rehearsal on the CPU, where every pass is eager."""
+    from tpuprt_torch import render as R
+    from tpuprt_torch.scene.parser import load_scene_string
+    # config1 at 256 x 256: more samples than lanes, so a pass is replayed.
+    for label, path, text_of, res, spp in (
+            ("bench3", BENCH3, film_text, res3, spp3),
+            ("config4_big", SCENE, film_text, res4, None),
+            ("config1", CONFIG1, film_text, res3 or 256, None),
+            ("bench3/textures", BENCH3, textures_text, res3 or 128, spp3)):
+        with open(path) as f:
+            scene, opts = load_scene_string(text_of(f.read(), res, spp))
+        opts = opts._replace(chunk_size=1 << 16)      # the benchmark's pool
+        scene = R.on_device(scene, device)
+        runs = [graph_frame(scene, opts, device, eager)
+                for eager in (True, False, False, True)]
+        eager = [r for r in runs if r[2]["eager"]]
+        graph = [r for r in runs if not r[2]["eager"]]
+        diff = images_close(f"{label}/graph", graph[0][:2], eager[0][:2],
+                            GRAPH_TOL, GRAPH_TOL)
+        floor = images_close(f"{label}/eager", eager[1][:2], eager[0][:2],
+                             GRAPH_TOL, GRAPH_TOL)
+        lines = [r[2] for r in runs]
+        for k in ("launches", "syncs"):
+            if len({json.dumps(r[k], sort_keys=True) for r in lines}) != 1:
+                raise AssertionError(f"{label}: {k} differ: "
+                                     f"{[r[k] for r in lines]}")
+        wf = [{k: v for k, v in r["wavefront"].items() if k != "Graph passes"}
+              for r in lines]
+        if any(w != wf[0] for w in wf):
+            raise AssertionError(f"{label}: Wavefront counters differ: {wf}")
+        if device != "cpu" and not lines[1]["wavefront"].get("Graph passes"):
+            raise AssertionError(f"{label}: no pass was replayed")
+        emit(phase="graph", scene=label, res=[opts.xres, opts.yres],
+             lanes=opts.chunk_size, tol=GRAPH_TOL, runs=lines,
+             eager_floor=floor, **diff)
+        del scene
+    # The census: every pool mode, one frame each.
+    for label, path, res in (("bench3", BENCH3, census_res or 64),
+                             ("config4_big", SCENE, census_res),
+                             ("config1", CONFIG1, census_res),
+                             ("config6", CONFIG6, census_res)):
+        with open(path) as f:
+            scene, opts = load_scene_string(film_text(f.read(), res))
+        sync_census(label, R.on_device(scene, device), opts, device)
 
 
 def plain_route(name):
@@ -4005,6 +4161,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     operability_phase(device, launches, c4_walls)
     emit(phase="operability", seconds=time.perf_counter() - t0)
+    # 39. The pool's replayed passes.
+    t0 = time.perf_counter()
+    graph_phase(device)
+    emit(phase="graph", seconds=time.perf_counter() - t0)
 
     print(smi, flush=True)
     path_of = {"bvh_tiles": "config4_big", "bvh_rows": "config4_big/rows",

@@ -11,6 +11,7 @@ one-sided disk area light) with Accelerator "none", at 16x16 x 2 spp.
 - The visibility rays of a bounce go to the kernels as tpuprt sends them:
   each segment in its own mode without an accelerator, fused on a BVH.
 - The whole render matches tpuprt.render.
+- The kernels' launch counters are all read through one registry.
 - The accelerator policy, and what the slice does not cover raises.
 
 test_accelerator_policy's cases run in test_torch_brute_policy.py and
@@ -31,9 +32,9 @@ from tpuprt.accel import intersect as jisect
 from tpuprt.cameras import cameras as jcam
 from tpuprt.samplers import samplers as jsmp
 from tpuprt.scene.parser import load_scene_string as jax_load
-from tpuprt_torch import render as torch_render
+from tpuprt_torch import ops, render as torch_render
 from tpuprt_torch.accel import intersect as tisect
-from tpuprt_torch.ops import mt_cuda
+from tpuprt_torch.ops import bvh_cuda, mt_cuda
 from tpuprt_torch.scene.bridge import from_numpy_tables
 from tpuprt_torch.scene.data import BvhAccel, GridAccel, KdTreeAccel
 from tpuprt_torch.scene.parser import load_scene_string
@@ -136,6 +137,31 @@ def test_occluded_matches_tpuprt(scenes, monkeypatch):
     assert 100 < want.sum() < len(want) - 100
     np.testing.assert_array_equal(
         tisect.intersect_ids(tscene, *args)[2].numpy(), want)
+
+
+
+def test_launch_registry_holds_every_wrapper():
+    """ops.launch_counters() holds each kernel wrapper's own launch dict,
+    so that counts read through it (a frame's, a replayed pass's) see
+    every kernel: launch_counts() merges them, reset_launches() zeroes
+    them all."""
+    counters = ops.launch_counters()
+    for wrapper in (bvh_cuda, mt_cuda):
+        assert any(c is wrapper.launches for c in counters), wrapper
+    saved = [dict(c) for c in counters]
+    try:
+        ops.reset_launches()
+        mt_cuda.launches["mt_best"] += 2
+        bvh_cuda.launches["bvh_rows"] += 1
+        counts = ops.launch_counts()
+        assert set(counts) == set(mt_cuda.launches) | set(bvh_cuda.launches)
+        assert {k: v for k, v in counts.items() if v} == {"mt_best": 2,
+                                                          "bvh_rows": 1}
+        ops.reset_launches()
+        assert not any(ops.launch_counts().values())
+    finally:
+        for c, s in zip(counters, saved):
+            c.update(s)
 
 
 @pytest.mark.parametrize("accel", ["none", "bvh"])

@@ -86,8 +86,9 @@ def bbox_intersect_p(lo, hi, o, d, mint, maxt):
 def smoothstep(lo: float, hi: float, x):
     """SmoothStep (reference core/pbrt.h:660-667) for scalar edges: 0 below
     lo, 1 above hi, a cubic between. The denominator is a tensor on x's
-    device, so the card divides as the CPU does."""
-    den = torch.tensor(hi - lo if hi != lo else 1.0, dtype=torch.float32,
-                       device=x.device)
+    device, so the card divides as the CPU does; it is filled there, as a
+    tensor copied from the host would wait for the device."""
+    den = torch.full((), hi - lo if hi != lo else 1.0, dtype=torch.float32,
+                     device=x.device)
     t = torch.clamp((x - lo) / den, 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)

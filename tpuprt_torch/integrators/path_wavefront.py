@@ -22,6 +22,12 @@ radiance core (integrators/photonmap.photon_radiance: all lights' direct
 lighting, the caustic map, the indirect map or the final gather), and the
 specular-only continuation.
 
+On a CUDA device the host issues a pass's several thousand small ops one
+at a time, far slower than the card runs them. Where a pass is known to
+run without a host sync (`graphed`), render() runs the first pass eagerly,
+records the next as a CUDA graph whose last ops write its results back
+over the state it read, and replays that graph for every later pass.
+
 Volumes (path_wavefront.py:219-261) compose as the chunked driver does
 (render.compose_volumes): on bounce 0 the camera segment's transmittance
 multiplies the throughput before any radiance is added, and the volume
@@ -34,6 +40,7 @@ step, purpose), so no sample's value changes.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
@@ -43,8 +50,9 @@ from ..cameras import cameras as cam_mod
 from ..core import rng, vecmath as vm
 from ..film import film as film_mod
 from ..lights import lights as lt
+from .. import ops
 from ..samplers import samplers as smp
-from ..scene.data import LIGHT_AREA, SceneData
+from ..scene.data import LIGHT_AREA, BvhAccel, SceneData
 from ..utils.progress import ProgressReporter
 from ..utils.stats import span
 from ..volumes import regions as vr
@@ -56,6 +64,10 @@ SALTS = {"path": 0xBA5E, "directlighting": 0xD112, "whitted": 0x817,
          "photonmap": 0x9B1}
 # Russian roulette from this bounce on (path_wavefront.py:434, :478).
 RR_START = 3
+# The modes whose pass showed no host sync on the card, one frame each
+# under torch.cuda.set_sync_debug_mode("warn") (PERF.md §6); photonmap's
+# lookups in its photon grids read counts on the host.
+GRAPH_MODES = frozenset({"path", "directlighting", "whitted"})
 
 
 def _regen(scene: SceneData, cfg, lin, seed, xres, yres, xstart, xcount,
@@ -282,6 +294,89 @@ def _init(scene, cfg, seed, n_lanes, total, xres, yres, xstart, xcount,
     return st
 
 
+def graphed(scene: SceneData, mode: str, device) -> bool:
+    """Whether render() records a pass as a CUDA graph and replays it: on
+    a CUDA device, in a mode of GRAPH_MODES, where the kernels walk the
+    main aggregate (the brute force, or a BVH of triangles only) and there
+    are no volume regions. The grid's, the kd-tree's and a quadric BVH's
+    plain walks and the volume terms pick their rays with nonzero, whose
+    count the host reads."""
+    accel = scene.accel
+    kernel_walk = accel is None or \
+        isinstance(accel, BvhAccel) and not accel.n_quadrics
+    return torch.device(device).type == "cuda" and mode in GRAPH_MODES \
+        and kernel_walk and not vr.present(scene.volumes)
+
+
+def recorded_launches(counters, record):
+    """Run `record`, a capture, and return by counter what the kernels'
+    launch counters (ops.launch_counters) rose by meanwhile, with each
+    counter set back: a capture launches nothing, its replays that much."""
+    before = [dict(c) for c in counters]
+    record()
+    rose = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+    for c, b in zip(counters, before):
+        c.update(b)
+    return rose
+
+
+def count_launches(counters, rose):
+    """Add one replay's launches (recorded_launches) to the counters."""
+    for c, r in zip(counters, rose):
+        for k, v in r.items():
+            c[k] += v
+
+
+def in_place(step, st, cursor):
+    """step(st, cursor) with its state and cursor copied over st and
+    cursor: the pass's counts (n_active, n_shadow)."""
+    out, cur, n_active, n_shadow = step(st, cursor)
+    for k, v in out.items():
+        st[k].copy_(v)
+    cursor.copy_(cur)
+    return n_active, n_shadow
+
+
+class _PassGraph:
+    """One in_place pass recorded as a CUDA graph on the state's device, so
+    that each replay() runs the next pass on the same tensors. n_active and
+    n_shadow hold the last replay's counts."""
+
+    def __init__(self, step, st, cursor):
+        self.device = st["alive"].device
+        self.graph = torch.cuda.CUDAGraph()
+        self.counters = ops.launch_counters()
+        self.launches = recorded_launches(
+            self.counters, lambda: self._record(step, st, cursor))
+
+    def _record(self, step, st, cursor):
+        # The state's device, which need not be the current one, records
+        # on a stream other than its default one.
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                self.graph.capture_begin()
+                self.n_active, self.n_shadow = in_place(step, st, cursor)
+                self.graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+        for w in caught:
+            # PyTorch only warns of a graph that recorded no kernel, whose
+            # replays would leave the frame at its first passes.
+            if "Graph is empty" in str(w.message):
+                raise RuntimeError(f"the pool's pass on {self.device} was "
+                                   f"recorded as an empty graph: {w.message}")
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+
+    def replay(self):
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+        count_launches(self.counters, self.launches)
+
+
 def render(scene: SceneData, opts, device, maps=None, progress=False,
            stats=None):
     """Full-frame wavefront render of a scene whose tables live on
@@ -290,7 +385,9 @@ def render(scene: SceneData, opts, device, maps=None, progress=False,
     first when none are given (path_wavefront.py:541-545). progress: a
     ProgressReporter bar over the samples started, read once a pass.
     stats: a StatsRegistry, given tpuprt's counters (path_wavefront.py:
-    608-614), summed on the device and read once after the last pass."""
+    608-614), summed on the device and read once after the last pass, and
+    where `graphed` holds, "Wavefront / Graph passes": the passes replayed
+    from the graph recorded for this call (freed when it returns)."""
     if opts.integrator not in SALTS:
         raise NotImplementedError(
             f'integrator "{opts.integrator}" has no wavefront pool (path, '
@@ -324,18 +421,31 @@ def render(scene: SceneData, opts, device, maps=None, progress=False,
     pass_limit = math.ceil(total * (opts.max_depth + 2) / n_lanes) + \
         opts.max_depth + 8
     rep = ProgressReporter(total, "Rendering") if progress else None
+
+    def step(st, cursor):
+        return _step(scene, film, st, cursor, max_depth=opts.max_depth,
+                     filter_kind=opts.filter_kind,
+                     filter_xwidth=opts.filter_xwidth,
+                     filter_ywidth=opts.filter_ywidth, mode=opts.integrator,
+                     strategy=strategy, sel=sel, maps=maps, prm=prm,
+                     vol_integrator=opts.volume_integrator, **kw)
+
+    record = graphed(scene, opts.integrator, device)
+    graph = None
     segments = shadow = 0
-    passes = done = 0
+    passes = replays = done = 0
     for _ in range(pass_limit):
         # The pass's film, camera and light spans nest inside "shade".
         with span("shade"):
-            st, cursor, n_active, n_shadow = _step(
-                scene, film, st, cursor, max_depth=opts.max_depth,
-                filter_kind=opts.filter_kind,
-                filter_xwidth=opts.filter_xwidth,
-                filter_ywidth=opts.filter_ywidth, mode=opts.integrator,
-                strategy=strategy, sel=sel, maps=maps, prm=prm,
-                vol_integrator=opts.volume_integrator, **kw)
+            if graph is None and record and passes:
+                # The frame's ints (seed, crop, total) are baked in.
+                graph = _PassGraph(step, st, cursor)
+            if graph is None:
+                st, cursor, n_active, n_shadow = step(st, cursor)
+            else:
+                graph.replay()
+                replays += 1
+                n_active, n_shadow = graph.n_active, graph.n_shadow
         passes += 1
         if stats is not None:
             segments, shadow = segments + n_active, shadow + n_shadow
@@ -356,6 +466,8 @@ def render(scene: SceneData, opts, device, maps=None, progress=False,
         with span("sync"):
             shadow = float(shadow)
         stats.add("Wavefront", "Passes", passes)
+        if record:
+            stats.add("Wavefront", "Graph passes", replays)
         stats.add("Wavefront", "Path segments traced", segments)
         stats.add("Wavefront", "Shadow rays traced", shadow)
         stats.add_ratio("Wavefront", "Lane occupancy", segments,

@@ -27,6 +27,7 @@ import torch
 
 from ..core import transform as tf
 from ..native import build_shared
+from . import launch_counter
 
 MAXD = 32          # per-depth mask slots (build_tiles rejects deeper trees)
 ROWS_LOCAL_LEVELS = 32   # bvh_rows.cu kLocalLevels (stack levels, local)
@@ -41,8 +42,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # Kernel launches by kernel name, counted by the wrappers where they launch
 # (plain integers; callers may reset them); bvh_tiles_any counts the tile
 # walk's any-hit launches among bvh_tiles'.
-launches = {"bvh_tiles": 0, "bvh_tiles_any": 0, "bvh_rows": 0,
-            "bvh_instanced": 0}
+launches = launch_counter("bvh_tiles", "bvh_tiles_any", "bvh_rows",
+                          "bvh_instanced")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

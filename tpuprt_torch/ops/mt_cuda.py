@@ -21,7 +21,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..shapes import triangle
-from . import bvh_cuda
+from . import bvh_cuda, launch_counter
 
 _BIG = 1e30
 # The plain version's [rays, triangles] chunk: at most this many pairs, so
@@ -33,7 +33,7 @@ MT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 
 # Kernel launches, counted by the wrapper where it launches (plain
 # integers; callers may reset them): all of them, and the any-hit ones.
-launches = {"mt_best": 0, "mt_best_any": 0}
+launches = launch_counter("mt_best", "mt_best_any")
 # The guards of the kernel's sign test (mt_best.cu kNumMin, kDivMax).
 NUM_MIN, DIV_MAX = 1e-20, 1e20
 # The stages at which the kernel settles a pair (settle_stage), in order.

@@ -93,6 +93,20 @@ def _perm(device):
     return t
 
 
+_const_cache = {}
+
+
+def _const(name, values, device):
+    """The constants `values` as f32 on `device`, copied there once under
+    `name`: a copy from the host waits for the device."""
+    key = (name, str(device))
+    t = _const_cache.get(key)
+    if t is None:
+        t = _const_cache[key] = torch.as_tensor(
+            np.asarray(values, np.float32)).to(device)
+    return t
+
+
 def _lerp(t, a, b):
     return (1.0 - t) * a + t * b
 
@@ -146,7 +160,10 @@ def _octave_sum(p, dpdx, dpdy, omega, max_octaves, turbulent):
     octaves, the footprint's octave count with a smoothstep-weighted
     partial last octave, as tpuprt unrolls them."""
     s2 = torch.maximum(vm.length_sq(dpdx), vm.length_sq(dpdy))
-    mo = torch.as_tensor(max_octaves, dtype=torch.float32, device=p.device)
+    # windy and marble pass a number: filled on the device, as a copy from
+    # the host would wait for it.
+    mo = max_octaves.to(torch.float32) if torch.is_tensor(max_octaves) else \
+        torch.full((), float(max_octaves), device=p.device)
     foctaves = torch.minimum(mo, 1.0 - 0.5 * torch.log2(
         torch.clamp(s2, min=1e-30)))
     foctaves = torch.clamp(foctaves, min=0.0)
@@ -201,7 +218,7 @@ def _map2d(meta: TexNodeMeta, fp, w2t, dg):
                 su * dg.get("dudx", zeros), sv * dg.get("dvdx", zeros),
                 su * dg.get("dudy", zeros), sv * dg.get("dvdy", zeros))
     if meta.mapping in ("spherical", "cylindrical"):
-        flat = torch.tensor([1.0, 1.0, 0.0], device=fp.device)
+        flat = _const("flat", (1.0, 1.0, 0.0), fp.device)
 
         def st(pp):
             pt = tf.apply_point(w2t, pp)
@@ -437,8 +454,8 @@ def eval_graph(graph: TexGraph, images, dg):
             has_dot = noise(cellp) > 0.0
             radius = 0.35
             maxshift = 0.5 - radius
-            off1 = torch.tensor([1.5, 2.8, 0.0], device=s.device)
-            off2 = torch.tensor([4.5, 9.8, 0.0], device=s.device)
+            off1 = _const("dots_off1", (1.5, 2.8, 0.0), s.device)
+            off2 = _const("dots_off2", (4.5, 9.8, 0.0), s.device)
             ds_ = s - (scell + maxshift * noise(cellp + off1))
             dt_ = t - (tcell + maxshift * noise(cellp + off2))
             inside = has_dot & (ds_ * ds_ + dt_ * dt_ < radius * radius)
@@ -489,7 +506,7 @@ _MARBLE_C = np.array([
 
 def _marble_spline(t):
     """pbrt's cubic spline through _MARBLE_C: 6 windows of 4 points."""
-    c = torch.from_numpy(_MARBLE_C).to(t.device)
+    c = _const("marble", _MARBLE_C, t.device)
     nseg = c.shape[0] - 3
     t = torch.clamp(t, 0.0, 0.9999)
     seg = torch.floor(t * nseg).to(torch.int32)
